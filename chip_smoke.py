@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase catches its own failure):
+
+1. card and build: the card's name and power limit, then an nvcc build
+   of every kernel under src/repro_torch/csrc/ for sm_90a;
+2. the smoke config (150 entities) through dedup_corpus on cuda and on
+   cpu: labels, survivors and counts must be equal;
+3. the SYN1M corpus (400k entities, about 750k records; HDB
+   max_block_size=200) through dedup_corpus on cuda, with every kernel's
+   launch count zeroed just before and read just after; a second run
+   records the arguments of every kernel launch of the main path, and a
+   third runs under torch.profiler for the stage breakdown and the
+   device idle share;
+4. each kernel against its plain PyTorch version on the card, on the
+   inputs the SYN1M main path gave it (every recorded launch), held
+   bit-identical (tolerance: exact equality), timed beside the plain
+   version, the library call where one exists, and the bound: ``ms`` is
+   the device time of the kernels a call launches (torch.profiler, mean
+   of 10 calls), ``call_ms`` the time per call from CUDA events around
+   back-to-back calls (host gaps included).
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the rest of the repository beside it, the script exits non-zero.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM published peaks: HBM3 bytes/s,
+# and the non-tensor-core float32 rate, used for the integer ALU work too
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
+REPS = 10
+SYN1M_ENTITIES = 400_000
+# lanes of the tri-decode check at block sizes the SYN1M path does not reach
+TRI_EXTREME_SLOTS = 1 << 20
+
+
+RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.")
+
+
+def _kernel_events(prof):
+    """The profiler's device-side events (kernels, copies, memsets), not
+    the device-side spans of record_function ranges."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(RANGE_PREFIXES)]
+
+
+def device_ms(fn, reps=REPS):
+    """Device milliseconds per call of ``fn``: the summed duration of the
+    kernels it launches (torch.profiler), without host launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in _kernel_events(prof)) / reps / 1e3
+
+
+def call_ms(fn, reps=REPS, inner=10):
+    """Milliseconds per call of ``fn`` from CUDA events around ``inner``
+    back-to-back calls (median of ``reps``), host launch gaps included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def timings(kernel, plain, library=None):
+    """The timing keys of one kernel's JSON entry."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": None if library is None else device_ms(library),
+            "call_ms": call_ms(kernel)}
+
+
+def bound(bytes_moved, ops):
+    """Least time in ms: the larger of the byte time and the op time."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / VECTOR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(pairs):
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for x, y in pairs)
+
+
+def assert_equal(name, pairs):
+    for k, (x, y) in enumerate(pairs):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: output {k} differs from the plain version")
+
+
+def check_tri_decode(calls):
+    """Every main-path launch against the plain version, then block sizes
+    up to MAX_BLOCK_N (the uint32 row products); the first launch, a
+    full chunk, is timed."""
+    from repro_torch.kernels.pairs import tri as td
+    errs = []
+    for local, size, steps in calls:
+        got = td.tri_decode(local, size, steps)
+        want = td.tri_decode_torch(local, size, steps)
+        assert_equal("tri_decode", zip(got, want))
+        errs.append(max_abs_err(zip(got, want)))
+        n = size.long()
+        live = (n >= 2) & (local >= 0) & (local.long() < n * (n - 1) // 2)
+        i, j, n, t = got[0].long()[live], got[1].long()[live], n[live], local.long()[live]
+        if not (bool((j > i).all()) and bool((j < n).all())
+                and torch.equal(i * (n - 1) - i * (i - 1) // 2 + j - i - 1, t)):
+            raise AssertionError("tri_decode: (i, j) do not invert the slot index")
+    rng = np.random.default_rng(11)
+    count = TRI_EXTREME_SLOTS
+    n = rng.integers(2, td.MAX_BLOCK_N + 1, count)
+    n[:4] = [2, 3, td.MAX_BLOCK_N, td.MAX_BLOCK_N]
+    t = (rng.random(count) * (n * (n - 1) // 2)).astype(np.int64)
+    t[3] = td.MAX_BLOCK_N * (td.MAX_BLOCK_N - 1) // 2 - 1
+    ext = (torch.from_numpy(t.astype(np.int32)).cuda(),
+           torch.from_numpy(n.astype(np.int32)).cuda(), td.MAX_SEARCH_STEPS)
+    assert_equal("tri_decode (block sizes to MAX_BLOCK_N)",
+                 zip(td.tri_decode(*ext), td.tri_decode_torch(*ext)))
+    local, size, steps = calls[0]
+    count = local.numel()
+    b_ms, b_by = bound(16 * count, count * (12 * steps + 10))
+    return {"name": "tri_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/tri_decode.cu",
+            "replaces": "src/repro/kernels/pairs/pairs.py:61",
+            "max_abs_err": max(errs),
+            **timings(lambda: td.tri_decode(local, size, steps),
+                      lambda: td.tri_decode_torch(local, size, steps)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"{len(calls)} launches, timed: {count} slots, steps={steps}"}
+
+
+def check_radix(calls):
+    """Every main-path pass against the plain version; the sort of the
+    first pass's words (the packed pair words) at every pass count, and
+    against torch.sort; the first pass is timed."""
+    from repro_torch.core import u64
+    from repro_torch.kernels.sort import ops as sort_ops
+    from repro_torch.kernels.sort import radix
+    errs = []
+    for w, p in calls:
+        got = radix.radix_pass(w, p)
+        want = radix.radix_pass_torch(w, p)
+        assert_equal(f"radix_pass p={p}", zip(got, want))
+        errs.append(max_abs_err(zip(got, want)))
+    words = calls[0][0]
+    count = words.numel()
+    for n_passes in range(sort_ops.MIN_PASSES, radix.MAX_PASSES + 1):
+        got = sort_ops.sort_words(words, backend="radix", n_passes=n_passes)
+        if n_passes == radix.MAX_PASSES:
+            want = u64.sort(words)[0]
+        else:
+            # digits at and above n_passes are never compared: a stable
+            # sort by the low bits (the sentinel's are all ones, so it is last)
+            low = words & ((1 << (4 * n_passes)) - 1)
+            want = words[torch.sort(low, stable=True)[1]]
+        if not torch.equal(got, want):
+            raise AssertionError(f"radix sort_words n_passes={n_passes} is wrong")
+    full = sort_ops.sort_words(words, backend="radix", n_passes=radix.MAX_PASSES)
+    flipped = u64.flip(words)
+    if not torch.equal(full, u64.flip(torch.sort(flipped, stable=True)[0])):
+        raise AssertionError("radix sort differs from torch.sort")
+    n_tiles = count // radix.TILE
+    b_ms, b_by = bound(12 * count + 64 * n_tiles, 10 * count)
+    sentinels = int(u64.is_sentinel(words).sum())
+    return {"name": "radix_pass", "route": "cuda",
+            "source": "src/repro_torch/csrc/radix_pass.cu",
+            "replaces": "src/repro/kernels/sort/sort.py:71",
+            "max_abs_err": max(errs),
+            # library_ms: one PyTorch call sorting the same words; it is a
+            # full sort, so compare it with sort_ms (the main path's pass
+            # count through the kernel, with the plain base scans and scatters)
+            **timings(lambda: radix.radix_pass(words, 0),
+                      lambda: radix.radix_pass_torch(words, 0),
+                      lambda: torch.sort(flipped, stable=True)),
+            "sort_ms": device_ms(lambda: sort_ops.sort_words(
+                words, backend="radix", n_passes=len(calls))),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"{len(calls)} passes of {count} words ({sentinels} "
+                     f"sentinels), timed: one pass; sort_ms is {len(calls)} passes"}
+
+
+def check_match(calls):
+    """The main path's one launch against the plain version, timed."""
+    from repro_torch.kernels.match import match as mk
+    (args,) = calls
+    tok, msk, col_off, weights, aa, bb, valid, threshold = args
+    got = mk.match_tiles(*args)
+    want = mk.match_tiles_torch(*args)
+    torch.cuda.synchronize()
+    assert_equal("match", zip(got, want))
+    count = aa.numel()
+    n_matched = int(got[0].sum())
+    if not 0 < n_matched < count:
+        raise AssertionError(f"match: {n_matched} of {count} pairs matched")
+    rows = int(torch.unique(torch.cat([aa, bb])).numel())
+    widths = np.diff(col_off)
+    bytes_moved = count * (4 + 4 + 1 + 4 + 4) + (count // mk.LANES) * 4 \
+        + rows * int(col_off[-1]) * 5
+    b_ms, b_by = bound(bytes_moved, count * 2 * int(np.sum(widths ** 2)))
+    err = max_abs_err(zip(got, want))
+    del got, want
+    return {"name": "match", "route": "cuda",
+            "source": "src/repro_torch/csrc/match.cu",
+            "replaces": "src/repro/kernels/match/match.py:83",
+            "max_abs_err": err,
+            **timings(lambda: mk.match_tiles(*args),
+                      lambda: mk.match_tiles_torch(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"{count} lanes, {n_matched} matched, {rows} distinct "
+                     f"records, T={widths.tolist()}"}
+
+
+def record_launches(run):
+    """Run ``run`` with each kernel wrapper wrapped where the main path
+    calls it; returns {kernel name: [positional args of every call]}."""
+    from repro_torch.kernels.match import ops as match_ops
+    from repro_torch.kernels.pairs import ops as pair_ops
+    from repro_torch.kernels.sort import ops as sort_ops
+    sites = {"tri_decode": (pair_ops, "tri_decode"),
+             "radix_pass": (sort_ops, "radix_pass"),
+             "match": (match_ops, "match_tiles")}
+    calls = {name: [] for name in sites}
+    original = {name: getattr(mod, attr) for name, (mod, attr) in sites.items()}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(args)
+            return original[name](*args)
+        return call
+
+    for name, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(name))
+    try:
+        run()
+    finally:
+        for name, (mod, attr) in sites.items():
+            setattr(mod, attr, original[name])
+    return calls
+
+
+def smoke_pipeline():
+    from repro_torch.core import hdb
+    from repro_torch.data import pipeline, synthetic
+    spec = synthetic.SyntheticSpec(num_entities=150, seed=7)
+    cfg = hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12)
+    reps = {dev: pipeline.dedup_corpus(synthetic.generate(spec, device=dev), cfg,
+                                       device=dev)
+            for dev in ("cuda", "cpu")}
+    gpu, cpu = reps["cuda"], reps["cpu"]
+    for field in ("num_candidate_pairs", "num_matched_pairs", "num_components"):
+        if getattr(gpu, field) != getattr(cpu, field):
+            raise AssertionError(f"smoke: {field} differs cuda vs cpu")
+    if not (np.array_equal(gpu.component_of, cpu.component_of)
+            and np.array_equal(gpu.survivors, cpu.survivors)):
+        raise AssertionError("smoke: labels or survivors differ cuda vs cpu")
+    print(f"smoke: {gpu.num_records} records, {gpu.num_candidate_pairs} pairs, "
+          f"{gpu.num_matched_pairs} matched, {gpu.num_components} components "
+          "(cuda == cpu)", flush=True)
+
+
+def profile_breakdown(run):
+    """Run ``run`` under torch.profiler; print the stage ranges, the
+    device's busy time and idle share of the wall time, the top device
+    kernels and the top host ops."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in _kernel_events(prof):
+        calls, us = kernels.get(e.name, (0, 0.0))
+        kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in kernels.values()) / 1e6
+    print(f"profile: wall_s={wall:.3f} device_busy_s={busy:.3f} "
+          f"device_idle_share={1 - busy / wall:.4f}", flush=True)
+    events = prof.key_averages()
+    for e in sorted(events, key=lambda e: e.key):
+        if e.key.startswith(RANGE_PREFIXES) and e.cpu_time_total:
+            print(f"profile range {e.key}: calls={e.count} "
+                  f"host_s={e.cpu_time_total / 1e6:.3f}", flush=True)
+    for name, (calls, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"profile device kernel {name[:70]}: calls={calls} "
+              f"device_s={us / 1e6:.4f}", flush=True)
+    host_ops = [e for e in events if not e.key.startswith(RANGE_PREFIXES)]
+    for e in sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"profile host op {e.key[:60]}: calls={e.count} "
+              f"host_s={e.self_cpu_time_total / 1e6:.4f}", flush=True)
+
+
+def full_size(kernels):
+    """The SYN1M main path: the counted run, the recorded run and the
+    profiled run. Returns (launch counts, recorded launch arguments)."""
+    from repro_torch.core import hdb
+    from repro_torch.data import pipeline, synthetic
+    t0 = time.perf_counter()
+    corpus = synthetic.generate(synthetic.SyntheticSpec(num_entities=SYN1M_ENTITIES, seed=5),
+                                device="cuda")
+    torch.cuda.synchronize()
+    print(f"SYN1M: generated {corpus.num_records} records in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = hdb.HDBConfig(max_block_size=200)
+
+    def run():
+        return pipeline.dedup_corpus(corpus, cfg, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    rep = run()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"SYN1M: records={rep.num_records} candidate_pairs="
+          f"{rep.num_candidate_pairs} matched_pairs={rep.num_matched_pairs} "
+          f"components={rep.num_components} blocking_s={rep.blocking_seconds:.3f} "
+          f"matching_s={rep.matching_seconds:.3f} "
+          f"partition_s={rep.partition_seconds:.3f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"launches={launches}", flush=True)
+    idle = [name for name, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"SYN1M: kernels never launched on the main path: {idle}")
+    surv = rep.survivors
+    if not (np.all(np.diff(surv) > 0)
+            and np.array_equal(rep.component_of[surv], surv)
+            and rep.component_of.shape == (rep.num_records,)
+            and np.all(rep.component_of <= np.arange(rep.num_records))):
+        raise AssertionError("SYN1M: survivors/labels break the component contract")
+    calls = record_launches(run)
+    recorded = {name: len(c) for name, c in calls.items()}
+    if recorded != launches:
+        raise AssertionError(f"SYN1M: recorded launches {recorded} != counted {launches}")
+    profile_breakdown(run)
+    return launches, calls
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.match import match as mk
+    from repro_torch.kernels.pairs import tri as td
+    from repro_torch.kernels.sort import radix
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    smoke_pipeline()
+    launches, calls = full_size([td.KERNEL, radix.KERNEL, mk.KERNEL])
+    rows = [check_tri_decode(calls.pop("tri_decode")),
+            check_radix(calls.pop("radix_pass")), check_match(calls.pop("match"))]
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["card"] = card
+        print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
+              f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) library_ms={row['library_ms']} "
+              f"call_ms={row['call_ms']:.4f} [{row['shape']}]", flush=True)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""MinHash + LSH(b, w) banding (paper §2.1), plain PyTorch.
+
+Same seeds and op order as the JAX package's ``core/minhash.py``. Token
+hashes are uint32 values held in int64; MinHash values likewise.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import hashing, u64
+
+_MH_SEED = 0x3141
+_GAMMA = 0x9E3779B97F4A7C15
+
+
+def minhash_tokens(tokens: torch.Tensor, mask: torch.Tensor, num_hashes: int,
+                   seed: int = _MH_SEED) -> torch.Tensor:
+    """(R, T) uint32 tokens + bool mask -> (R, m) MinHash values.
+
+    Each value is the min over valid tokens of
+    ``lo32(mix64(token + (seed + 977*i + 1) * gamma))``; rows with no valid
+    token get 0xFFFFFFFF.
+    """
+    x = u64.from_u32(tokens)
+    out = torch.empty((tokens.shape[0], num_hashes), dtype=torch.int64,
+                      device=tokens.device)
+    for i in range(num_hashes):
+        add = u64.signed((seed + 977 * i + 1) * _GAMMA)
+        lo = u64.lo32(hashing.mix64(x + add))
+        lo = torch.where(mask, lo, u64.MASK32)
+        out[:, i] = lo.amin(dim=1) if lo.shape[1] else u64.MASK32
+    return out
+
+
+def band_keys(minhashes: torch.Tensor, bands: int, rows_per_band: int,
+              column_seed: int = 0) -> torch.Tensor:
+    """Hash each band of ``rows_per_band`` MinHashes into one u64 key."""
+    r, m = minhashes.shape
+    if m != bands * rows_per_band:
+        raise ValueError(f"{m} minhashes != {bands} bands x {rows_per_band}")
+    grouped = minhashes.reshape(r, bands, rows_per_band)
+    h = hashing.hash_u64(u64.full((r, bands), 0, minhashes.device),
+                         seed=0x15A4 + column_seed)
+    gamma = u64.signed(_GAMMA)
+    for k in range(rows_per_band):  # sponge over the band
+        h = hashing.mix64((h ^ u64.from_u32(grouped[:, :, k])) + gamma)
+    band_idx = torch.arange(bands, dtype=torch.int64, device=minhashes.device)
+    return hashing.mix64(h ^ band_idx[None, :])
+
+
+def lsh_keys(tokens: torch.Tensor, mask: torch.Tensor, bands: int,
+             rows_per_band: int, column_seed: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSH blocking keys + validity for a padded token-set column.
+
+    Rows with zero valid tokens emit no keys (valid=False).
+    """
+    mh = minhash_tokens(tokens, mask, bands * rows_per_band)
+    keys = band_keys(mh, bands, rows_per_band, column_seed)
+    valid = mask.any(dim=1, keepdim=True).expand(keys.shape)
+    return keys, valid
