@@ -8,20 +8,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. card and build: the card's name and power limit, then an nvcc build
    of every kernel under src/repro_torch/csrc/ for sm_90a;
 2. the smoke config (150 entities) through dedup_corpus on cuda and on
-   cpu: labels, survivors and counts must be equal;
-3. the SYN1M corpus (400k entities, about 750k records; HDB
-   max_block_size=200) through dedup_corpus on cuda, with every kernel's
-   launch count zeroed just before and read just after; a second run
-   records the arguments of every kernel launch of the main path, and a
-   third runs under torch.profiler for the stage breakdown and the
-   device idle share;
+   cpu, for blocker="hdb" and blocker="threshold": labels, survivors and
+   counts must be equal;
+3. the SYN1M corpus (400k entities, about 750k records; max_block_size
+   200) through dedup_corpus on cuda:
+   - a counted HDB run, with every kernel's launch count zeroed just
+     before and read just after; each of the seven kernels must launch;
+   - a recorded HDB run that keeps the arguments of the kernel launches
+     (every launch of tri-decode, radix pass and match; of mix64,
+     combine64, minhash and cms, each launch is held against its plain
+     version as it happens and only the largest is kept);
+   - a counted blocker="threshold" run, and the naive pair count of the
+     SYN1M keys (the paper's Table 3 "Naive" column);
+   - a run under torch.profiler for the stage breakdown and the device
+     idle share;
 4. each kernel against its plain PyTorch version on the card, on the
-   inputs the SYN1M main path gave it (every recorded launch), held
-   bit-identical (tolerance: exact equality), timed beside the plain
-   version, the library call where one exists, and the bound: ``ms`` is
-   the device time of the kernels a call launches (torch.profiler, mean
-   of 10 calls), ``call_ms`` the time per call from CUDA events around
-   back-to-back calls (host gaps included).
+   inputs the SYN1M main path gave it, held bit-identical (tolerance:
+   exact equality), timed beside the plain version, the library call
+   where one exists, and the bound: ``ms`` is the device time of the
+   kernels a call launches (torch.profiler, mean of 10 calls),
+   ``call_ms`` the time per call from CUDA events around back-to-back
+   calls (host gaps included).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -43,6 +50,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # and the non-tensor-core float32 rate, used for the integer ALU work too
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
+# 64-bit integer operations a key: splitmix64 is 3 shifts, 3 xors and 2
+# multiplies; combine64 adds a compare, 2 selects, a rotate (3), an xor, an
+# add and a second mix; a MinHash evaluation adds the addend, the mask
+# select and the running minimum to one mix
+MIX64_OPS = 8
+COMBINE64_OPS = 2 * MIX64_OPS + 8
+MINHASH_OPS = MIX64_OPS + 3
 REPS = 10
 SYN1M_ENTITIES = 400_000
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
@@ -238,30 +252,137 @@ def check_match(calls):
                      f"records, T={widths.tolist()}"}
 
 
-def record_launches(run):
+def check_recorded(rec, kernel, plain, bytes_moved, ops, library=None):
+    """The timing, bound and error keys of a kernel checked in the recorder
+    (every launch already held against its plain version there); the
+    largest launch is timed."""
+    b_ms, b_by = bound(bytes_moved, ops)
+    # every launch was torch.equal to its plain version in the recorder
+    return {"max_abs_err": 0.0, **timings(kernel, plain, library),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_mix64(rec):
+    from repro_torch.kernels.hash64 import hash64
+    (x,) = rec["args"]
+    n = x.numel()
+    return {"name": "mix64", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash64.cu",
+            "replaces": "src/repro/kernels/hash64/hash64.py:62",
+            **check_recorded(rec, lambda: hash64.mix64_bulk(x),
+                             lambda: hash64.mix64_torch(x), 16 * n, MIX64_OPS * n),
+            "shape": f"{rec['launches']} launches checked, timed: {n} keys"}
+
+
+def check_combine64(rec):
+    from repro_torch.kernels.hash64 import hash64
+    a, b = rec["args"]
+    n = a.numel()
+    return {"name": "combine64", "route": "cuda",
+            "source": "src/repro_torch/csrc/hash64.cu",
+            "replaces": "src/repro/kernels/hash64/hash64.py:55",
+            **check_recorded(rec, lambda: hash64.combine64(a, b),
+                             lambda: hash64.combine64_torch(a, b),
+                             24 * n, COMBINE64_OPS * n),
+            "shape": f"{rec['launches']} launches checked, timed: "
+                     f"{tuple(a.shape)} key pairs"}
+
+
+def check_minhash(rec):
+    from repro_torch.kernels.minhash import minhash
+    tok, mask, m, seed = rec["args"]
+    r, t = tok.shape
+    # only valid tokens need reading and hashing; the mask is read whole
+    live = int(mask.sum())
+    return {"name": "minhash", "route": "cuda",
+            "source": "src/repro_torch/csrc/minhash.cu",
+            "replaces": "src/repro/kernels/minhash/minhash.py:65",
+            **check_recorded(rec, lambda: minhash.minhash(tok, mask, m, seed),
+                             lambda: minhash.minhash_torch(tok, mask, m, seed),
+                             r * t + live * 8 + r * m * 8, live * m * MINHASH_OPS),
+            "shape": f"{rec['launches']} launches checked, timed: R={r} T={t} "
+                     f"M={m} ({live} valid tokens)"}
+
+
+def check_cms(rec):
+    from repro_torch.kernels.cms import cms
+    idx, mask, width = rec["args"]
+    depth, n = idx.shape
+    # only live entries' indices need reading; the mask is read whole and
+    # the sketch written once
+    live = int(mask.sum())
+    sketch = torch.zeros((depth, width), dtype=torch.int32, device=idx.device)
+    upd = mask.to(torch.int32)
+
+    def index_add():
+        for d in range(depth):
+            sketch[d].index_add_(0, idx[d], upd)
+
+    return {"name": "cms_update", "route": "cuda",
+            "source": "src/repro_torch/csrc/cms.cu",
+            "replaces": "src/repro/kernels/cms/cms.py:42",
+            # library_ms: the per-row index_add_ on the same indices
+            **check_recorded(rec, lambda: cms.cms_update(idx, mask, width),
+                             lambda: cms.cms_update_torch(idx, mask, width),
+                             depth * live * 4 + n + depth * width * 4,
+                             depth * live, index_add),
+            "shape": f"{rec['launches']} launches checked, timed: depth={depth} "
+                     f"N={n} width={width} ({live} live)"}
+
+
+def record_launches(run, kernels):
     """Run ``run`` with each kernel wrapper wrapped where the main path
-    calls it; returns {kernel name: [positional args of every call]}."""
+    calls it. Returns {kernel name: record}: for tri_decode, radix_pass and
+    match the positional arguments of every launch; for mix64, combine64,
+    minhash and cms_update (whose launches over up to 90M keys would not
+    all fit on the card) a dict with the launch count and the arguments
+    of the largest launch, after every launch was held equal to its plain
+    version as it happened."""
+    from repro_torch.kernels.cms import cms, ops as cms_ops
+    from repro_torch.kernels.hash64 import hash64, ops as hash64_ops
     from repro_torch.kernels.match import ops as match_ops
+    from repro_torch.kernels.minhash import minhash, ops as minhash_ops
     from repro_torch.kernels.pairs import ops as pair_ops
     from repro_torch.kernels.sort import ops as sort_ops
-    sites = {"tri_decode": (pair_ops, "tri_decode"),
-             "radix_pass": (sort_ops, "radix_pass"),
-             "match": (match_ops, "match_tiles")}
-    calls = {name: [] for name in sites}
-    original = {name: getattr(mod, attr) for name, (mod, attr) in sites.items()}
+    # name: (module the main path calls through, wrapper, plain version)
+    sites = {"tri_decode": (pair_ops, "tri_decode", None),
+             "radix_pass": (sort_ops, "radix_pass", None),
+             "match": (match_ops, "match_tiles", None),
+             "mix64": (hash64_ops, "mix64_bulk", hash64.mix64_torch),
+             "combine64": (hash64_ops, "combine64", hash64.combine64_torch),
+             "minhash": (minhash_ops, "minhash", minhash.minhash_torch),
+             "cms_update": (cms_ops, "cms_update", cms.cms_update_torch)}
+    by_name = {k.name: k for k in kernels}
+    calls = {name: [] if plain is None else
+             {"launches": 0, "args": None, "size": -1}
+             for name, (_, _, plain) in sites.items()}
+    original = {name: getattr(mod, attr) for name, (mod, attr, _) in sites.items()}
 
-    def recorder(name):
+    def recorder(name, plain):
         def call(*args):
-            calls[name].append(args)
-            return original[name](*args)
+            before = by_name[name].launches
+            out = original[name](*args)
+            if by_name[name].launches == before:
+                return out
+            if plain is None:
+                calls[name].append(args)
+                return out
+            if not torch.equal(out, plain(*args)):
+                raise AssertionError(f"{name}: a main-path launch differs "
+                                     "from the plain version")
+            rec = calls[name]
+            rec["launches"] += 1
+            if args[0].numel() > rec["size"]:
+                rec["args"], rec["size"] = args, args[0].numel()
+            return out
         return call
 
-    for name, (mod, attr) in sites.items():
-        setattr(mod, attr, recorder(name))
+    for name, (mod, attr, plain) in sites.items():
+        setattr(mod, attr, recorder(name, plain))
     try:
         run()
     finally:
-        for name, (mod, attr) in sites.items():
+        for name, (mod, attr, _) in sites.items():
             setattr(mod, attr, original[name])
     return calls
 
@@ -271,19 +392,21 @@ def smoke_pipeline():
     from repro_torch.data import pipeline, synthetic
     spec = synthetic.SyntheticSpec(num_entities=150, seed=7)
     cfg = hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12)
-    reps = {dev: pipeline.dedup_corpus(synthetic.generate(spec, device=dev), cfg,
-                                       device=dev)
-            for dev in ("cuda", "cpu")}
-    gpu, cpu = reps["cuda"], reps["cpu"]
-    for field in ("num_candidate_pairs", "num_matched_pairs", "num_components"):
-        if getattr(gpu, field) != getattr(cpu, field):
-            raise AssertionError(f"smoke: {field} differs cuda vs cpu")
-    if not (np.array_equal(gpu.component_of, cpu.component_of)
-            and np.array_equal(gpu.survivors, cpu.survivors)):
-        raise AssertionError("smoke: labels or survivors differ cuda vs cpu")
-    print(f"smoke: {gpu.num_records} records, {gpu.num_candidate_pairs} pairs, "
-          f"{gpu.num_matched_pairs} matched, {gpu.num_components} components "
-          "(cuda == cpu)", flush=True)
+    for blocker in ("hdb", "threshold"):
+        reps = {dev: pipeline.dedup_corpus(synthetic.generate(spec, device=dev),
+                                           cfg, blocker=blocker, device=dev)
+                for dev in ("cuda", "cpu")}
+        gpu, cpu = reps["cuda"], reps["cpu"]
+        for field in ("num_candidate_pairs", "num_matched_pairs", "num_components"):
+            if getattr(gpu, field) != getattr(cpu, field):
+                raise AssertionError(f"smoke {blocker}: {field} differs cuda vs cpu")
+        if not (np.array_equal(gpu.component_of, cpu.component_of)
+                and np.array_equal(gpu.survivors, cpu.survivors)):
+            raise AssertionError(f"smoke {blocker}: labels or survivors differ "
+                                 "cuda vs cpu")
+        print(f"smoke {blocker}: {gpu.num_records} records, "
+              f"{gpu.num_candidate_pairs} pairs, {gpu.num_matched_pairs} matched, "
+              f"{gpu.num_components} components (cuda == cpu)", flush=True)
 
 
 def profile_breakdown(run):
@@ -317,10 +440,39 @@ def profile_breakdown(run):
               f"host_s={e.self_cpu_time_total / 1e6:.4f}", flush=True)
 
 
+def check_components(tag, rep):
+    """The survivor/label contract of a dedup_corpus report."""
+    surv = rep.survivors
+    if not (np.all(np.diff(surv) > 0)
+            and np.array_equal(rep.component_of[surv], surv)
+            and rep.component_of.shape == (rep.num_records,)
+            and np.all(rep.component_of <= np.arange(rep.num_records))):
+        raise AssertionError(f"{tag}: survivors/labels break the component contract")
+
+
+def counted_run(tag, run, kernels):
+    """One run with every launch count zeroed just before and read just
+    after; prints the report. Returns the launch counts."""
+    for k in kernels:
+        k.launches = 0
+    rep = run()
+    launches = {k.name: k.launches for k in kernels}
+    print(f"{tag}: records={rep.num_records} candidate_pairs="
+          f"{rep.num_candidate_pairs} matched_pairs={rep.num_matched_pairs} "
+          f"components={rep.num_components} blocking_s={rep.blocking_seconds:.3f} "
+          f"matching_s={rep.matching_seconds:.3f} "
+          f"partition_s={rep.partition_seconds:.3f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"launches={launches}", flush=True)
+    check_components(tag, rep)
+    return launches
+
+
 def full_size(kernels):
-    """The SYN1M main path: the counted run, the recorded run and the
-    profiled run. Returns (launch counts, recorded launch arguments)."""
-    from repro_torch.core import hdb
+    """The SYN1M main path: the counted HDB run, the recorded run, the
+    counted threshold run, the naive pair count and the profiled run.
+    Returns (HDB launch counts, recorded launches)."""
+    from repro_torch.core import baselines, blocks, hdb
     from repro_torch.data import pipeline, synthetic
     t0 = time.perf_counter()
     corpus = synthetic.generate(synthetic.SyntheticSpec(num_entities=SYN1M_ENTITIES, seed=5),
@@ -330,34 +482,25 @@ def full_size(kernels):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     cfg = hdb.HDBConfig(max_block_size=200)
 
-    def run():
-        return pipeline.dedup_corpus(corpus, cfg, device="cuda")
+    def run(blocker="hdb"):
+        return pipeline.dedup_corpus(corpus, cfg, blocker=blocker, device="cuda")
 
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    rep = run()
-    launches = {k.name: k.launches for k in kernels}
-    print(f"SYN1M: records={rep.num_records} candidate_pairs="
-          f"{rep.num_candidate_pairs} matched_pairs={rep.num_matched_pairs} "
-          f"components={rep.num_components} blocking_s={rep.blocking_seconds:.3f} "
-          f"matching_s={rep.matching_seconds:.3f} "
-          f"partition_s={rep.partition_seconds:.3f} "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
-          f"launches={launches}", flush=True)
+    launches = counted_run("SYN1M hdb", run, kernels)
     idle = [name for name, c in launches.items() if c == 0]
     if idle:
         raise AssertionError(f"SYN1M: kernels never launched on the main path: {idle}")
-    surv = rep.survivors
-    if not (np.all(np.diff(surv) > 0)
-            and np.array_equal(rep.component_of[surv], surv)
-            and rep.component_of.shape == (rep.num_records,)
-            and np.all(rep.component_of <= np.arange(rep.num_records))):
-        raise AssertionError("SYN1M: survivors/labels break the component contract")
-    calls = record_launches(run)
-    recorded = {name: len(c) for name, c in calls.items()}
+    calls = record_launches(run, kernels)
+    recorded = {name: len(c) if isinstance(c, list) else c["launches"]
+                for name, c in calls.items()}
     if recorded != launches:
         raise AssertionError(f"SYN1M: recorded launches {recorded} != counted {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    counted_run("SYN1M threshold", lambda: run("threshold"), kernels)
+    keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
+    print(f"SYN1M: naive_pair_count={baselines.naive_pair_count(keys, valid)} "
+          f"over {int(valid.sum())} top-level keys", flush=True)
+    del keys, valid
     profile_breakdown(run)
     return launches, calls
 
@@ -367,7 +510,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cms import cms
+    from repro_torch.kernels.hash64 import hash64
     from repro_torch.kernels.match import match as mk
+    from repro_torch.kernels.minhash import minhash
     from repro_torch.kernels.pairs import tri as td
     from repro_torch.kernels.sort import radix
 
@@ -382,9 +528,17 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     smoke_pipeline()
-    launches, calls = full_size([td.KERNEL, radix.KERNEL, mk.KERNEL])
-    rows = [check_tri_decode(calls.pop("tri_decode")),
-            check_radix(calls.pop("radix_pass")), check_match(calls.pop("match"))]
+    launches, calls = full_size([td.KERNEL, radix.KERNEL, mk.KERNEL,
+                                 hash64.MIX_KERNEL, hash64.COMBINE_KERNEL,
+                                 minhash.KERNEL, cms.KERNEL])
+    checks = {"tri_decode": check_tri_decode, "radix_pass": check_radix,
+              "match": check_match, "mix64": check_mix64,
+              "combine64": check_combine64, "minhash": check_minhash,
+              "cms_update": check_cms}
+    rows = []
+    for name, check in checks.items():
+        rows.append(check(calls.pop(name)))
+        torch.cuda.empty_cache()
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["card"] = card

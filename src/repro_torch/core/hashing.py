@@ -2,31 +2,28 @@
 
 Same functions, seeds and constants as the JAX package's
 ``core/hashing.py``; the numpy mirrors below are this package's own copy
-(host-side tokenization and test oracles).
+(host-side tokenization and test oracles). ``mix64`` runs the hash64
+mix kernel on a CUDA tensor and its plain version on a CPU tensor.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels.hash64 import ops as hash64_ops
+from ..kernels.hash64.hash64 import GAMMA as _GAMMA, M1 as _M1, M2 as _M2
 from . import u64
 
-# splitmix64 constants
-_GAMMA = 0x9E3779B97F4A7C15
-_M1 = 0xBF58476D1CE4E5B9
-_M2 = 0x94D049BB133111EB
 _GAMMA_S = u64.signed(_GAMMA)
-_M1_S = u64.signed(_M1)
-_M2_S = u64.signed(_M2)
 
 
 def mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64 finalizer: full-avalanche bijective mixer on u64."""
-    x = x ^ u64.shr(x, 30)
-    x = x * _M1_S
-    x = x ^ u64.shr(x, 27)
-    x = x * _M2_S
-    return x ^ u64.shr(x, 31)
+    """splitmix64 finalizer: full-avalanche bijective mixer on u64.
+
+    Callers pass views (``grouped[:, :, k]``); the kernel takes them
+    contiguous.
+    """
+    return hash64_ops.mix64_bulk(x.contiguous())
 
 
 def hash_u64(x: torch.Tensor, seed: int = 0) -> torch.Tensor:

@@ -32,6 +32,7 @@ from torch.profiler import record_function
 
 from . import hashing, segments, sketches, u64
 from ..device import DeviceLike, resolve_device
+from ..kernels.hash64 import ops as hash64_ops
 
 INT32_MAX = 2**31 - 1
 logger = logging.getLogger(__name__)
@@ -117,9 +118,10 @@ def rough_classify(cfg: HDBConfig, s: torch.Tensor, valid: torch.Tensor,
 def rough_oversize_detection(cfg: HDBConfig, key: torch.Tensor,
                              valid: torch.Tensor, psize: torch.Tensor):
     """Algorithm 3. Returns (right_mask, keep_mask, dropped_mask, approx_counts)."""
-    flat_key = key.reshape(-1)
-    cms = sketches.cms_build(cfg.cms, flat_key, valid.reshape(-1))
-    s = sketches.cms_query(cfg.cms, cms, flat_key).reshape(valid.shape)
+    # one hash chain per iteration: the build and the query share indices
+    idx = sketches.cms_indices(cfg.cms, key.reshape(-1))
+    cms = sketches.cms_build_indices(cfg.cms, idx, valid.reshape(-1))
+    s = sketches.cms_query_indices(cms, idx).reshape(valid.shape)
     right, keep, dropped_sim = rough_classify(cfg, s, valid, psize)
     return right, keep, dropped_sim, s
 
@@ -221,10 +223,8 @@ def intersect_keys(cfg: HDBConfig, key: torch.Tensor, survive: torch.Tensor,
     ii, jj = np.triu_indices(ko, 1)
     ii = torch.from_numpy(ii).to(key.device)
     jj = torch.from_numpy(jj).to(key.device)
-    a, b = k_s[:, ii], k_s[:, jj]
-    lo_key = u64.minimum(a, b)
-    hi_key = torch.where(lo_key == a, b, a)
-    new_key = hashing.combine(lo_key, hi_key)
+    # order-canonical combine (the hash64 combine kernel on the card)
+    new_key = hash64_ops.combine64(k_s[:, ii], k_s[:, jj])
     new_psize = torch.minimum(sz_s[:, ii], sz_s[:, jj])
     new_valid = ok[:, ii] & ok[:, jj]
     # per-record set semantics: one row-sort carrying psize, mask repeats

@@ -1,7 +1,9 @@
-"""MinHash + LSH(b, w) banding (paper §2.1), plain PyTorch.
+"""MinHash + LSH(b, w) banding (paper §2.1).
 
 Same seeds and op order as the JAX package's ``core/minhash.py``. Token
-hashes are uint32 values held in int64; MinHash values likewise.
+hashes are uint32 values held in int64; MinHash values likewise. The
+MinHash matrix is the minhash kernel (``kernels/minhash``) on a CUDA
+tensor and its plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -9,9 +11,10 @@ from typing import Tuple
 
 import torch
 
+from ..kernels.minhash import ops as minhash_ops
+from ..kernels.minhash.minhash import MH_SEED as _MH_SEED
 from . import hashing, u64
 
-_MH_SEED = 0x3141
 _GAMMA = 0x9E3779B97F4A7C15
 
 
@@ -21,17 +24,10 @@ def minhash_tokens(tokens: torch.Tensor, mask: torch.Tensor, num_hashes: int,
 
     Each value is the min over valid tokens of
     ``lo32(mix64(token + (seed + 977*i + 1) * gamma))``; rows with no valid
-    token get 0xFFFFFFFF.
+    token get 0xFFFFFFFF. The minhash kernel on the card.
     """
-    x = u64.from_u32(tokens)
-    out = torch.empty((tokens.shape[0], num_hashes), dtype=torch.int64,
-                      device=tokens.device)
-    for i in range(num_hashes):
-        add = u64.signed((seed + 977 * i + 1) * _GAMMA)
-        lo = u64.lo32(hashing.mix64(x + add))
-        lo = torch.where(mask, lo, u64.MASK32)
-        out[:, i] = lo.amin(dim=1) if lo.shape[1] else u64.MASK32
-    return out
+    return minhash_ops.minhash(tokens.contiguous(), mask.contiguous(),
+                               num_hashes, seed)
 
 
 def band_keys(minhashes: torch.Tensor, bands: int, rows_per_band: int,

@@ -1,7 +1,9 @@
 """End-to-end batch dedup: keys -> HDB -> pairs -> match -> clusters.
 
 Port of ``dedup_corpus`` from the JAX package's ``data/pipeline.py``
-(batch mode, ``blocker="hdb"``). The back half runs behind a
+(batch mode). ``blocker="hdb"`` blocks with HDB, ``blocker="threshold"``
+with the paper's THR baseline (``core/baselines.py``); everything after
+blocking is shared. The back half runs behind a
 ``match_backend`` knob: ``"host"`` scores on the host and clusters the
 gathered matched pairs; ``"auto"`` is the fused path, where the pair list
 stays on the device from the pair engine through the match kernel into
@@ -17,6 +19,7 @@ import time
 import numpy as np
 from torch.profiler import record_function
 
+from ..core import baselines
 from ..core import blocks as blocks_mod
 from ..core import hdb as hdb_mod
 from ..core import pairs as pairs_mod
@@ -48,11 +51,7 @@ def dedup_corpus(corpus: Corpus,
                  match_backend: str = "auto",
                  cc_max_rounds: int = 64,
                  device: DeviceLike = None) -> DedupReport:
-    if blocker == "threshold":
-        raise NotImplementedError(
-            "blocker='threshold' is not ported yet (ROADMAP A9: baselines "
-            "and meta-blocking)")
-    if blocker != "hdb":
+    if blocker not in ("hdb", "threshold"):
         raise ValueError(blocker)
     backend = matcher.resolve_match_backend(match_backend)
     dev = resolve_device(device)
@@ -63,9 +62,14 @@ def dedup_corpus(corpus: Corpus,
     # record_function ranges name the stages in a profiler trace
     with record_function("dedup.keys"):
         keys, valid = blocks_mod.build_keys(columns, corpus.blocking)
-    with record_function("dedup.hdb"):
-        result = hdb_mod.hashed_dynamic_blocking(keys, valid, cfg,
-                                                 verbose=verbose, device=dev)
+    if blocker == "hdb":
+        with record_function("dedup.hdb"):
+            result = hdb_mod.hashed_dynamic_blocking(keys, valid, cfg,
+                                                     verbose=verbose, device=dev)
+    else:
+        with record_function("dedup.threshold"):
+            result = baselines.threshold_blocking(keys, valid,
+                                                  cfg.max_block_size, device=dev)
     with record_function("dedup.build_blocks"):
         blk = pairs_mod.build_blocks(result, device=dev)
     with record_function("dedup.pairs"):

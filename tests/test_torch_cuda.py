@@ -72,9 +72,66 @@ def test_smoke_pipeline_cuda_equals_cpu(dev):
     from repro_torch.data import pipeline, synthetic
     spec = synthetic.SyntheticSpec(num_entities=150, seed=7)
     cfg = hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12)
-    gpu = pipeline.dedup_corpus(synthetic.generate(spec, device=dev), cfg, device=dev)
-    cpu = pipeline.dedup_corpus(synthetic.generate(spec, device="cpu"), cfg,
-                                device="cpu")
-    assert np.array_equal(gpu.component_of, cpu.component_of)
-    assert np.array_equal(gpu.survivors, cpu.survivors)
-    assert gpu.num_matched_pairs == cpu.num_matched_pairs
+    for blocker in ("hdb", "threshold"):
+        gpu = pipeline.dedup_corpus(synthetic.generate(spec, device=dev), cfg,
+                                    blocker=blocker, device=dev)
+        cpu = pipeline.dedup_corpus(synthetic.generate(spec, device="cpu"), cfg,
+                                    blocker=blocker, device="cpu")
+        assert np.array_equal(gpu.component_of, cpu.component_of)
+        assert np.array_equal(gpu.survivors, cpu.survivors)
+        assert gpu.num_matched_pairs == cpu.num_matched_pairs
+
+
+def test_mix64_kernel_matches_plain(dev):
+    from repro_torch.core import hashing
+    from repro_torch.kernels.hash64 import hash64
+    rng = np.random.default_rng(3)
+    for n in (1, 1000, (1 << 20) + 3):
+        x = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                          dtype=np.int64)).to(dev)
+        assert torch.equal(hash64.mix64_bulk(x), hash64.mix64_torch(x))
+    grid = x[: 999 * 3].reshape(999, 3)
+    # a strided view goes through hashing.mix64's .contiguous()
+    assert torch.equal(hashing.mix64(grid[:, 1]), hash64.mix64_torch(grid[:, 1]))
+
+
+def test_combine64_kernel_matches_plain(dev):
+    from repro_torch.kernels.hash64 import hash64
+    rng = np.random.default_rng(4)
+    a = rng.integers(-(1 << 63), (1 << 63) - 1, (1000, 120), dtype=np.int64)
+    b = rng.integers(-(1 << 63), (1 << 63) - 1, (1000, 120), dtype=np.int64)
+    b[::3] = a[::3]                                 # ties: a == b
+    b[1::7] = -1                                    # the all-ones key
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = hash64.combine64(a, b)
+    assert torch.equal(got, hash64.combine64_torch(a, b))
+    assert torch.equal(got, hash64.combine64(b, a))
+
+
+@pytest.mark.parametrize("r,t,m", [(1, 1, 1), (257, 129, 32), (20_000, 24, 24),
+                                   (300, 8, 1024), (50, 0, 24)])
+def test_minhash_kernel_matches_plain(dev, r, t, m):
+    from repro_torch.kernels.minhash import minhash
+    rng = np.random.default_rng(r + t + m)
+    tok = torch.from_numpy(rng.integers(0, 1 << 32, (r, t), dtype=np.int64)).to(dev)
+    mask = torch.from_numpy(rng.random((r, t)) < 0.8).to(dev)
+    mask[: r // 3] = False                          # empty rows
+    got = minhash.minhash(tok, mask, m)
+    assert torch.equal(got, minhash.minhash_torch(tok, mask, m))
+    if t == 0:
+        assert bool((got == 0xFFFFFFFF).all())
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_cms_kernel_matches_plain(dev, skew):
+    from repro_torch.kernels.cms import cms
+    rng = np.random.default_rng(5)
+    depth, n, width = 4, 1 << 20, 1 << 12
+    idx = rng.integers(0, width, (depth, n))
+    if skew:                                        # one bucket per row, most entries
+        idx[:, rng.random(n) < 0.9] = rng.integers(0, width, (depth, 1))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    got = cms.cms_update(idx, mask, width)
+    assert torch.equal(got, cms.cms_update_torch(idx, mask, width))
+    assert int(got[0].sum()) == int(mask.sum())

@@ -13,12 +13,13 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import baselines as jbase  # noqa: E402
 from repro.core import blocks as jblocks  # noqa: E402
 from repro.core import hdb as jhdb  # noqa: E402
 from repro.core import segments as jseg  # noqa: E402
 from repro.core import sketches as jsk  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
-from repro_torch.core import blocks, hdb, segments, sketches, u64  # noqa: E402
+from repro_torch.core import baselines, blocks, hdb, segments, sketches, u64  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 
 CORPORA = {
@@ -57,6 +58,24 @@ def test_blocking_result_and_stats_bit_identical(name):
     tr = hdb.hashed_dynamic_blocking(tk, tv, hdb.HDBConfig(**cfg), device="cpu")
     _assert_same_result(jr, tr)
     assert len(tr.stats) >= 2 and len(tr.rids) > 0
+
+
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_threshold_blocking_bit_identical(name):
+    spec, cfg = CORPORA[name]
+    (jk, jv), (tk, tv) = _keys(spec)
+    jr = jbase.threshold_blocking(jk, jv, cfg["max_block_size"])
+    tr = baselines.threshold_blocking(tk, tv, cfg["max_block_size"], device="cpu")
+    _assert_same_result(jr, tr)
+    assert 0 < len(tr.rids) < int(tv.sum())
+
+
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_naive_pair_count_bit_identical(name):
+    spec, _ = CORPORA[name]
+    (jk, jv), (tk, tv) = _keys(spec)
+    got = baselines.naive_pair_count(tk, tv, device="cpu")
+    assert got == jbase.naive_pair_count(jk, jv) > 0
 
 
 def test_rep_capacity_warning_fires_at_the_same_iteration():

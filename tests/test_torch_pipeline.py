@@ -1,7 +1,8 @@
 """Port parity: the whole slice (keys -> HDB -> pairs -> match -> clusters).
 
 At the ``examples/fused_dedup.py --smoke`` config the port's
-``dedup_corpus`` (fused and host back ends, on the CPU) is held against
+``dedup_corpus`` (fused and host back ends, on the CPU; ``blocker="hdb"``
+and ``"threshold"``) is held against
 ``repro.data.pipeline.dedup_corpus(match_backend="pallas")``; clustering
 is also held against the union-find oracle. Inputs come from fixed
 seeds. Tolerance: exact equality of every label, survivor and count.
@@ -17,7 +18,7 @@ from repro.core import hdb as jhdb  # noqa: E402
 from repro.data import components as jcomp  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
-from repro_torch.core import blocks, hdb, pairs  # noqa: E402
+from repro_torch.core import baselines, blocks, hdb, pairs  # noqa: E402
 from repro_torch.data import components, matcher, pipeline, synthetic  # noqa: E402
 
 SMOKE_SPEC = dict(num_entities=150, seed=7)
@@ -107,6 +108,10 @@ ENTRY_POINTS = {
         np.zeros(1, np.int64), np.ones(1, np.int64)),
     "cluster_pairs_device": lambda: components.cluster_pairs_device(
         4, torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.int32)),
+    "threshold_blocking": lambda: baselines.threshold_blocking(
+        torch.zeros((2, 1), dtype=torch.int64), torch.ones((2, 1), dtype=torch.bool)),
+    "naive_pair_count": lambda: baselines.naive_pair_count(
+        torch.zeros((2, 1), dtype=torch.int64), torch.ones((2, 1), dtype=torch.bool)),
 }
 
 
@@ -118,7 +123,21 @@ def test_entry_points_default_to_cuda(name):
         ENTRY_POINTS[name]()
 
 
-def test_threshold_blocker_not_ported(smoke):
-    _, _, tc = smoke
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipeline.dedup_corpus(tc, blocker="threshold", device="cpu")
+@pytest.fixture(scope="module")
+def smoke_threshold(smoke):
+    jc, _, tc = smoke
+    jrep = jpipe.dedup_corpus(jc, jhdb.HDBConfig(**SMOKE_CFG), blocker="threshold",
+                              match_backend="pallas")
+    return jrep, tc
+
+
+@pytest.mark.parametrize("backend", ["auto", "host"])
+def test_threshold_pipeline_matches_reference(smoke_threshold, backend):
+    jrep, tc = smoke_threshold
+    rep = pipeline.dedup_corpus(tc, hdb.HDBConfig(**SMOKE_CFG), blocker="threshold",
+                                match_backend=backend, device="cpu")
+    assert np.array_equal(rep.component_of, jrep.component_of)
+    assert np.array_equal(rep.survivors, jrep.survivors)
+    for field in ("num_candidate_pairs", "num_matched_pairs", "num_components"):
+        assert getattr(rep, field) == getattr(jrep, field), field
+    assert rep.num_matched_pairs > 0 and rep.num_components < rep.num_records
