@@ -13,11 +13,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 3. the SYN1M corpus (400k entities, about 750k records; max_block_size
    200) through dedup_corpus on cuda:
    - a counted HDB run, with every kernel's launch count zeroed just
-     before and read just after; each of the seven kernels must launch;
+     before and read just after; each of the eight kernels must launch
+     (the seven TPU kernels' ports, the radix sort being two: its digit
+     counts and its pass);
    - a recorded HDB run that keeps the arguments of the kernel launches
-     (every launch of tri-decode, radix pass and match; of mix64,
-     combine64, minhash and cms, each launch is held against its plain
-     version as it happens and only the largest is kept);
+     (every launch of tri-decode, the radix sort pass and match; of
+     the radix digit counts, mix64, combine64, minhash and cms, each
+     launch is held against its plain version as it happens and only
+     the largest is kept);
    - a counted blocker="threshold" run, and the naive pair count of the
      SYN1M keys (the paper's Table 3 "Naive" column);
    - a run under torch.profiler for the stage breakdown and the device
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    where one exists, and the bound: ``ms`` is the device time of the
    kernels a call launches (torch.profiler, mean of 10 calls),
    ``call_ms`` the time per call from CUDA events around back-to-back
-   calls (host gaps included).
+   calls (host gaps included). The radix sort is also held against
+   torch.sort at every pass count 4..16, on the SYN1M pair words and on
+   adversarial words, and timed as a whole sort (``sort_ms``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -57,6 +62,9 @@ VECTOR_OPS_PER_S = 67e12
 MIX64_OPS = 8
 COMBINE64_OPS = 2 * MIX64_OPS + 8
 MINHASH_OPS = MIX64_OPS + 3
+# a column's score terms: two popcounts, the union, the divide, the
+# weighted add and the norm's add
+MATCH_COLUMN_OPS = 6
 REPS = 10
 SYN1M_ENTITIES = 400_000
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
@@ -77,15 +85,26 @@ def _kernel_events(prof):
 
 def device_ms(fn, reps=REPS):
     """Device milliseconds per call of ``fn``: the summed duration of the
-    kernels it launches (torch.profiler), without host launch gaps."""
+    kernels it launches (torch.profiler), without host launch gaps.
+
+    Every call launches the same kernels, so an event count that is no
+    multiple of the calls means the profiler lost events (it has, on
+    calls of hundreds of kernels): the window is measured again, and the
+    third that still loses events raises."""
     from torch.profiler import ProfilerActivity, profile
+    attempts = 3
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in _kernel_events(prof)) / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        if events and len(events) % reps == 0:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    raise AssertionError(f"profiler saw {len(events)} device events over "
+                         f"{reps} calls, {attempts} times")
 
 
 def call_ms(fn, reps=REPS, inner=10):
@@ -171,54 +190,100 @@ def check_tri_decode(calls):
             "shape": f"{len(calls)} launches, timed: {count} slots, steps={steps}"}
 
 
-def check_radix(calls):
-    """Every main-path pass against the plain version; the sort of the
-    first pass's words (the packed pair words) at every pass count, and
-    against torch.sort; the first pass is timed."""
+def adversarial_words(count):
+    """Words that stress the sort's ranks and look-back: one digit value
+    everywhere, all sentinels, already sorted, reversed, and a size that is
+    not a whole number of tiles."""
+    rng = np.random.default_rng(13)
+    rand = rng.integers(-(1 << 63), (1 << 63) - 1, count, dtype=np.int64)
+    rand[::9] = -1
+    ordered = np.sort(rand.view(np.uint64)).view(np.int64)
+    return {"one digit": np.full(count, 0x5A5A5A5A5A5A5A5A, np.int64),
+            "sentinels": np.full(count, -1, np.int64),
+            "sorted": ordered, "reversed": ordered[::-1].copy(),
+            "ragged": rand[: count - 4096 + 17]}
+
+
+def check_sort_at_every_pass_count(name, words):
+    """sort_words(backend="radix") against torch.sort at n_passes 4..16."""
     from repro_torch.core import u64
     from repro_torch.kernels.sort import ops as sort_ops
     from repro_torch.kernels.sort import radix
-    errs = []
-    for w, p in calls:
-        got = radix.radix_pass(w, p)
-        want = radix.radix_pass_torch(w, p)
-        assert_equal(f"radix_pass p={p}", zip(got, want))
-        errs.append(max_abs_err(zip(got, want)))
-    words = calls[0][0]
-    count = words.numel()
     for n_passes in range(sort_ops.MIN_PASSES, radix.MAX_PASSES + 1):
         got = sort_ops.sort_words(words, backend="radix", n_passes=n_passes)
         if n_passes == radix.MAX_PASSES:
-            want = u64.sort(words)[0]
+            want = u64.flip(torch.sort(u64.flip(words), stable=True)[0])
         else:
             # digits at and above n_passes are never compared: a stable
             # sort by the low bits (the sentinel's are all ones, so it is last)
             low = words & ((1 << (4 * n_passes)) - 1)
             want = words[torch.sort(low, stable=True)[1]]
         if not torch.equal(got, want):
-            raise AssertionError(f"radix sort_words n_passes={n_passes} is wrong")
-    full = sort_ops.sort_words(words, backend="radix", n_passes=radix.MAX_PASSES)
+            raise AssertionError(f"radix sort of {name} words, n_passes="
+                                 f"{n_passes}, differs from torch.sort")
+
+
+def check_radix(calls):
+    """Every main-path pass against the plain version; the sort of the
+    first pass's words (the packed pair words) and of adversarial words at
+    every pass count against torch.sort; the first pass and the main
+    path's whole sort are timed."""
+    from repro_torch.core import u64
+    from repro_torch.kernels.sort import ops as sort_ops
+    from repro_torch.kernels.sort import radix
+    errs = []
+    for args in calls:
+        w, q, bits = args[:3]
+        got = radix.sort_pass(*args)
+        want = radix.sort_pass_torch(w, q, bits)
+        assert_equal(f"sort_pass q={q} bits={bits}", [(got, want)])
+        errs.append(max_abs_err([(got, want)]))
+        del got, want
+    words, q0, bits0, totals0 = calls[0]
+    count = words.numel()
+    check_sort_at_every_pass_count("SYN1M pair", words)
+    for name, w in adversarial_words(1 << 20).items():
+        check_sort_at_every_pass_count(name, torch.from_numpy(w).cuda())
+    n_passes = sum(c[2] for c in calls) // radix.RADIX_BITS
+    b_ms, b_by = bound(16 * count + 4 * radix.RADIX, 10 * count)
+    # the radix algorithm's least bytes: one read for the digit counts,
+    # then a read and a write a pass
+    sort_bound_ms, _ = bound((8 + 16 * len(calls)) * count, 0)
     flipped = u64.flip(words)
-    if not torch.equal(full, u64.flip(torch.sort(flipped, stable=True)[0])):
-        raise AssertionError("radix sort differs from torch.sort")
-    n_tiles = count // radix.TILE
-    b_ms, b_by = bound(12 * count + 64 * n_tiles, 10 * count)
     sentinels = int(u64.is_sentinel(words).sum())
-    return {"name": "radix_pass", "route": "cuda",
-            "source": "src/repro_torch/csrc/radix_pass.cu",
+    return {"name": "radix_sort", "route": "cuda",
+            "source": "src/repro_torch/csrc/radix_sort.cu",
             "replaces": "src/repro/kernels/sort/sort.py:71",
             "max_abs_err": max(errs),
             # library_ms: one PyTorch call sorting the same words; it is a
-            # full sort, so compare it with sort_ms (the main path's pass
-            # count through the kernel, with the plain base scans and scatters)
-            **timings(lambda: radix.radix_pass(words, 0),
-                      lambda: radix.radix_pass_torch(words, 0),
+            # full sort, so compare it with sort_ms (the main path's whole
+            # sort: the digit counts and every pass)
+            **timings(lambda: radix.sort_pass(words, q0, bits0, totals0),
+                      lambda: radix.sort_pass_torch(words, q0, bits0),
                       lambda: torch.sort(flipped, stable=True)),
             "sort_ms": device_ms(lambda: sort_ops.sort_words(
-                words, backend="radix", n_passes=len(calls))),
+                words, backend="radix", n_passes=n_passes)),
+            "sort_call_ms": call_ms(lambda: sort_ops.sort_words(
+                words, backend="radix", n_passes=n_passes)),
+            "sort_bound_ms": sort_bound_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"{len(calls)} passes of {count} words ({sentinels} "
-                     f"sentinels), timed: one pass; sort_ms is {len(calls)} passes"}
+            "shape": f"{len(calls)} 8-bit passes (n_passes={n_passes}) of "
+                     f"{count} words ({sentinels} sentinels), timed: one pass; "
+                     f"sort_ms is the whole sort"}
+
+
+def check_digit_counts(rec):
+    from repro_torch.kernels.sort import radix
+    words, n_digits, last_bits = rec["args"]
+    n = words.numel()
+    return {"name": "radix_digit_counts", "route": "cuda",
+            "source": "src/repro_torch/csrc/radix_sort.cu",
+            "replaces": "src/repro/kernels/sort/sort.py:71",
+            **check_recorded(rec, lambda: radix.digit_counts(words, n_digits, last_bits),
+                             lambda: radix.digit_counts_torch(words, n_digits, last_bits),
+                             8 * n + 4 * n_digits * radix.RADIX, 3 * n_digits * n),
+            "shape": f"{rec['launches']} launches checked, timed: {n} words, "
+                     f"{n_digits} digit positions"}
 
 
 def check_match(calls):
@@ -238,7 +303,17 @@ def check_match(calls):
     widths = np.diff(col_off)
     bytes_moved = count * (4 + 4 + 1 + 4 + 4) + (count // mk.LANES) * 4 \
         + rows * int(col_off[-1]) * 5
-    b_ms, b_by = bound(bytes_moved, count * 2 * int(np.sum(widths ** 2)))
+    # the operations this run's data needs: in each column where both rows
+    # have valid slots, a merge of the two sorted valid runs (at most
+    # na + nb - 1 steps of a compare and an advance), then the column's
+    # score terms
+    n_valid = torch.stack([msk[:, lo:hi].sum(1) for lo, hi
+                           in zip(col_off[:-1], col_off[1:])], 1)
+    live = valid.bool()
+    na, nb = n_valid[aa[live].long()], n_valid[bb[live].long()]
+    steps = int(torch.where((na > 0) & (nb > 0), na + nb, 0).sum())
+    ops = 2 * steps + MATCH_COLUMN_OPS * int(live.sum()) * len(widths)
+    b_ms, b_by = bound(bytes_moved, ops)
     err = max_abs_err(zip(got, want))
     del got, want
     return {"name": "match", "route": "cuda",
@@ -332,10 +407,10 @@ def check_cms(rec):
 
 def record_launches(run, kernels):
     """Run ``run`` with each kernel wrapper wrapped where the main path
-    calls it. Returns {kernel name: record}: for tri_decode, radix_pass and
-    match the positional arguments of every launch; for mix64, combine64,
-    minhash and cms_update (whose launches over up to 90M keys would not
-    all fit on the card) a dict with the launch count and the arguments
+    calls it. Returns {kernel name: record}: for tri_decode, radix_sort and
+    match the positional arguments of every launch; for radix_digit_counts,
+    mix64, combine64, minhash and cms_update (whose launches over up to 90M
+    keys would not all fit on the card) a dict with the launch count and the arguments
     of the largest launch, after every launch was held equal to its plain
     version as it happened."""
     from repro_torch.kernels.cms import cms, ops as cms_ops
@@ -344,9 +419,12 @@ def record_launches(run, kernels):
     from repro_torch.kernels.minhash import minhash, ops as minhash_ops
     from repro_torch.kernels.pairs import ops as pair_ops
     from repro_torch.kernels.sort import ops as sort_ops
+    from repro_torch.kernels.sort import radix
     # name: (module the main path calls through, wrapper, plain version)
     sites = {"tri_decode": (pair_ops, "tri_decode", None),
-             "radix_pass": (sort_ops, "radix_pass", None),
+             "radix_sort": (sort_ops, "sort_pass", None),
+             "radix_digit_counts": (sort_ops, "digit_counts",
+                                    radix.digit_counts_torch),
              "match": (match_ops, "match_tiles", None),
              "mix64": (hash64_ops, "mix64_bulk", hash64.mix64_torch),
              "combine64": (hash64_ops, "combine64", hash64.combine64_torch),
@@ -528,10 +606,12 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     smoke_pipeline()
-    launches, calls = full_size([td.KERNEL, radix.KERNEL, mk.KERNEL,
+    launches, calls = full_size([td.KERNEL, radix.PASS_KERNEL,
+                                 radix.COUNTS_KERNEL, mk.KERNEL,
                                  hash64.MIX_KERNEL, hash64.COMBINE_KERNEL,
                                  minhash.KERNEL, cms.KERNEL])
-    checks = {"tri_decode": check_tri_decode, "radix_pass": check_radix,
+    checks = {"tri_decode": check_tri_decode, "radix_sort": check_radix,
+              "radix_digit_counts": check_digit_counts,
               "match": check_match, "mix64": check_mix64,
               "combine64": check_combine64, "minhash": check_minhash,
               "cms_update": check_cms}

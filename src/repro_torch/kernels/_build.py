@@ -121,6 +121,15 @@ class Kernel:
         self.launches += 1
 
 
+def c_helper(source: str, symbol: str, argtypes, restype):
+    """A C function of one ``csrc`` source that launches nothing (a size
+    query): it is bound on first use and has no launch count."""
+    fn = getattr(_library(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     """Wrapper-side checks before a pointer goes to a kernel."""
     if t.device.type != "cuda":

@@ -4,11 +4,12 @@ The kernel (``csrc/match.cu``) replaces the TPU kernel
 ``match_score_pallas`` (``src/repro/kernels/match/match.py:83``): per
 candidate pair the weighted per-column Jaccard score, ``valid & score >=
 threshold``, the exclusive rank among the matched pairs of its 128-pair
-tile, and each tile's matched count. Each thread gathers its own pair's
-token rows from the concatenated ``(N, T_total)`` matrices; the float32
-op order is that of ``score_lanes``, with no FMA contraction, so the
-kernel and the plain version agree bit for bit. It is memory-bound on the
-H100 (two gathered rows a pair against T*T compares a column).
+tile, and each tile's matched count. One call packs every record into a
+16-byte-aligned row (tokens plus a 64-bit valid-slot bitmask), stages
+each tile's 2 x 128 rows in shared memory and compares from there, with a
+column's a-slots in registers. The float32 op order is that of
+``score_lanes``, with no FMA contraction, so the kernel and the plain
+version agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,13 +21,22 @@ import torch
 from .._build import Kernel, check_cuda, ptr
 
 LANES = 128
+# token slots a record: the packed row keeps their valid bits in 64
+MAX_SLOTS = 64
 
 KERNEL = Kernel(
     "match", "match.cu", "match_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_longlong])
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_longlong])
+
+
+def packed_stride(t_total: int) -> int:
+    """int32 words of a packed record row: the tokens and two mask words,
+    rounded up to 16 bytes."""
+    return -(-(t_total + 2) // 4) * 4
 
 
 def pair_jaccard(tok: torch.Tensor, mask: torch.Tensor, a: torch.Tensor,
@@ -109,6 +119,8 @@ def match_tiles(tok: torch.Tensor, msk: torch.Tensor, col_off: Sequence[int],
     if tok.shape != msk.shape or tok.shape[1] != col_off[-1]:
         raise ValueError(f"tok {tuple(tok.shape)} / msk {tuple(msk.shape)} do "
                          f"not match {col_off[-1]} token columns")
+    if tok.shape[1] > MAX_SLOTS:
+        raise ValueError(f"{tok.shape[1]} token slots exceed {MAX_SLOTS}")
     if not aa.shape == bb.shape == valid.shape:
         raise ValueError("aa, bb and valid must have one shape")
     dev = tok.device
@@ -118,7 +130,11 @@ def match_tiles(tok: torch.Tensor, msk: torch.Tensor, col_off: Sequence[int],
     matched = torch.empty(n, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.empty(n // LANES, dtype=torch.int32, device=dev)
-    KERNEL(ptr(tok), ptr(msk), tok.shape[1], ptr(off_d), ptr(w_d), len(weights),
-           ptr(aa), ptr(bb), ptr(valid), ctypes.c_float(threshold),
-           ptr(matched), ptr(rank), ptr(counts), n // LANES)
+    t_total = tok.shape[1]
+    stride = packed_stride(t_total)
+    rows = torch.empty((tok.shape[0], stride), dtype=torch.int32, device=dev)
+    KERNEL(ptr(tok), ptr(msk), t_total, tok.shape[0], ptr(rows), stride,
+           ptr(off_d), ptr(w_d), len(weights), ptr(aa), ptr(bb), ptr(valid),
+           ctypes.c_float(threshold), ptr(matched), ptr(rank), ptr(counts),
+           n // LANES)
     return matched, rank, counts

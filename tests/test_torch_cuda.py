@@ -32,16 +32,69 @@ def test_tri_decode_kernel_matches_plain(dev):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("p", [0, 5, 15])
-def test_radix_pass_kernel_matches_plain(dev, p):
+def _sort_inputs(seed):
+    """Words for the sort kernels: random (with sentinels, over many
+    tiles), one digit value everywhere, all sentinels, already sorted,
+    reversed, and sizes that are not a tile multiple."""
+    rng = np.random.default_rng(seed)
+    n = 3 * 4096 + 17
+    rand = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    rand[::7] = -1
+    ordered = np.sort(rand.view(np.uint64)).view(np.int64)
+    big = rng.integers(-(1 << 63), (1 << 63) - 1, (1 << 20) + 3, dtype=np.int64)
+    return {"random": rand, "many_tiles": big,
+            "one_digit": np.full(n, 0x0101010101010101, np.int64),
+            "sentinels": np.full(n, -1, np.int64), "sorted": ordered,
+            "reversed": ordered[::-1].copy(), "small": rand[:1000]}
+
+
+@pytest.mark.parametrize("q,bits", [(0, 8), (3, 4), (5, 8), (7, 8)])
+def test_sort_pass_kernel_matches_plain(dev, q, bits):
     from repro_torch.kernels.sort import radix
-    rng = np.random.default_rng(p)
-    w = rng.integers(-(1 << 63), (1 << 63) - 1, 64 * 1024, dtype=np.int64)
-    w[::7] = -1
-    words = torch.from_numpy(w).to(dev)
-    got = radix.radix_pass(words, p)
-    want = radix.radix_pass_torch(words, p)
-    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    for name, w in _sort_inputs(q).items():
+        words = torch.from_numpy(w).to(dev)
+        counts = radix.digit_counts(words, q + 1, bits)
+        assert torch.equal(counts, radix.digit_counts_torch(words, q + 1, bits)), name
+        want = radix.sort_pass_torch(words, q, bits)
+        assert torch.equal(radix.sort_pass(words, q, bits, counts[q]), want), name
+
+
+@pytest.mark.parametrize("n_passes", [4, 7, 12, 15, 16])
+def test_radix_sort_kernel_matches_torch_sort(dev, n_passes):
+    from repro_torch.core import u64
+    from repro_torch.kernels.sort import ops as sort_ops
+    for name, w in _sort_inputs(n_passes).items():
+        words = torch.from_numpy(w).to(dev)
+        got = sort_ops.sort_words(words, backend="radix", n_passes=n_passes)
+        if n_passes == 16:
+            want = u64.sort(words)[0]
+        else:
+            # bits at and above 4 * n_passes are never compared
+            low = words & ((1 << (4 * n_passes)) - 1)
+            want = words[torch.sort(low, stable=True)[1]]
+        assert torch.equal(got, want), name
+
+
+def test_radix_sort_one_digit_over_2_30_words(dev):
+    """More than 2^30 of 1.14e9 words share one digit value, so a tile's
+    look-back prefix passes 30 bits. Word k is ``k << 16 | low``: a stable
+    sort by the low 16 bits orders equal lows by k."""
+    from repro_torch.kernels.sort import ops as sort_ops
+    n = (1 << 30) + (1 << 26) + 17
+    gen = torch.Generator(device=dev).manual_seed(0)
+    low = torch.randint(0, 1 << 16, (n,), device=dev, dtype=torch.int32,
+                        generator=gen)
+    low.masked_fill_(torch.rand(n, device=dev, generator=gen) < 0.99, 0)
+    words = torch.arange(n, device=dev) << 16 | low
+    del low
+    got = sort_ops.sort_words(words, backend="radix", n_passes=4)
+    # each output word is the input word of its k, and the (low, k) keys
+    # rise strictly: every word comes out once, in stable order
+    k = got >> 16
+    assert torch.equal(words[k], got)
+    del words
+    key = (got & 0xFFFF) << 32 | k
+    assert bool((key[1:] > key[:-1]).all())
 
 
 def test_match_kernel_matches_plain(dev):
@@ -65,6 +118,35 @@ def test_match_kernel_matches_plain(dev):
         got = match.match_tiles(*args)
         want = match.match_tiles_torch(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("widths", [(8, 24, 1, 1, 1), (3, 40, 5)])
+def test_match_kernel_token_edge_cases(dev, widths):
+    """Repeated tokens (a six-token alphabet), masked slots whose token
+    equals a valid one on the other side, an all-masked column, a column
+    wider than 32 slots, and invalid lanes."""
+    from repro_torch.kernels.match import match
+    rng = np.random.default_rng(len(widths))
+    col_off = [0] + np.cumsum(widths).tolist()
+    n, lanes = 600, 4096
+    tok = rng.integers(0, 6, (n, col_off[-1])).astype(np.int32)
+    msk = rng.random((n, col_off[-1])) < 0.6
+    msk[:, col_off[2]:col_off[3]] = False          # one column masked everywhere
+    msk[::5, col_off[1]:col_off[2]] = False        # and one column on some records
+    a = rng.integers(0, n, lanes).astype(np.int32)
+    b = rng.integers(0, n, lanes).astype(np.int32)
+    b[:300] = a[:300]
+    b[300:600] = (a[300:600] + 1) % n
+    tok[(a[300:600] + 1) % n] = tok[a[300:600]]    # equal tokens, other masks
+    valid = (rng.random(lanes) < 0.95).astype(np.uint8)
+    weights = tuple(float(w) for w in rng.random(len(widths)) + 0.1)
+    args = [torch.from_numpy(x).to(dev) for x in (tok, msk.astype(np.uint8), a, b, valid)]
+    for thr in (0.2, 0.5, 0.8, 1.0):
+        call = (args[0], args[1], col_off, weights, args[2], args[3], args[4], thr)
+        got = match.match_tiles(*call)
+        want = match.match_tiles_torch(*call)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert 0 < int(got[0].sum()) < lanes or thr == 1.0
 
 
 def test_smoke_pipeline_cuda_equals_cpu(dev):

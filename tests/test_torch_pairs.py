@@ -1,4 +1,4 @@
-"""Port parity: tri-decode, radix pass, word sort and the pair engine.
+"""Port parity: tri-decode, radix sort passes, word sort and the pair engine.
 
 The plain versions of the port's kernels are held against the JAX
 package's Pallas kernels in interpret mode, and the port's PairSet
@@ -22,8 +22,7 @@ from repro.kernels.sort import np_radix_sort_words, radix_pass_pallas  # noqa: E
 from repro_torch.core import hdb, pairs  # noqa: E402
 from repro_torch.kernels import pairs as pk  # noqa: E402
 from repro_torch.kernels.pairs import ref  # noqa: E402
-from repro_torch.kernels.sort import ops as sort_ops  # noqa: E402
-from repro_torch.kernels.sort import radix  # noqa: E402
+from repro_torch.kernels import sort as sort_ops  # noqa: E402
 
 
 def test_tri_decode_plain_matches_pallas_interpret():
@@ -58,19 +57,49 @@ def _words(seed, count, sentinel_frac=0.1, dup_frac=0.3):
     return w
 
 
-@pytest.mark.parametrize("p", [0, 3, 9, 15])
-def test_radix_pass_plain_matches_pallas_interpret(p):
-    w = _words(p, 4 * 1024).view(np.uint64)
+def _jax_pass(w, p):
+    """One 4-bit pass of the reference: ``radix_pass_pallas`` (interpret
+    mode) for the in-tile ranks and tile histograms, then the digit-major
+    base scan and the scatter in numpy, as ``_radix_sort_kernel`` does."""
     hi = (w >> np.uint64(32)).astype(np.uint32).reshape(-1, 128)
     lo = (w & np.uint64(0xFFFFFFFF)).astype(np.uint32).reshape(-1, 128)
     jrank, jhist = radix_pass_pallas(jnp.asarray(hi), jnp.asarray(lo), p=p,
                                      interpret=True)
-    rank, hist = radix.radix_pass(torch.from_numpy(w.view(np.int64)), p)
-    assert np.array_equal(rank.numpy(), np.asarray(jrank).reshape(-1))
-    assert np.array_equal(hist.numpy(), np.asarray(jhist)[:, :radix.RADIX])
+    hist = np.asarray(jhist)[:, :16].astype(np.int64)     # (n_tiles, 16)
+    flat = hist.T.reshape(-1)
+    base = (np.cumsum(flat) - flat).reshape(16, -1)
+    digit = ((w >> np.uint64(4 * p)) & np.uint64(0xF)).astype(np.int64)
+    tile = np.arange(len(w)) // 1024
+    out = np.empty_like(w)
+    out[base[digit, tile] + np.asarray(jrank).reshape(-1)] = w
+    return out
 
 
-@pytest.mark.parametrize("n_passes", [4, 7, 12, 16])
+@pytest.mark.parametrize("q,bits", [(0, 8), (1, 4), (3, 8), (6, 4), (7, 8)])
+def test_sort_pass_plain_matches_pallas_interpret(q, bits):
+    """An 8-bit pass at digit q equals the reference's 4-bit passes 2q then
+    2q+1 (only 2q when the pass is masked to 4 bits)."""
+    w = _words(q, 4 * 1024).view(np.uint64)
+    want = _jax_pass(w, 2 * q)
+    if bits == 8:
+        want = _jax_pass(want, 2 * q + 1)
+    got = sort_ops.sort_pass_torch(torch.from_numpy(w.view(np.int64)), q, bits)
+    assert np.array_equal(got.numpy().view(np.uint64), want)
+
+
+@pytest.mark.parametrize("n_digits,last_bits", [(1, 8), (4, 4), (8, 8)])
+def test_digit_counts_plain_matches_numpy(n_digits, last_bits):
+    w = _words(n_digits, 3000).view(np.uint64)
+    got = sort_ops.digit_counts(torch.from_numpy(w.view(np.int64)), n_digits,
+                                last_bits).numpy()
+    for q in range(n_digits):
+        bits = last_bits if q == n_digits - 1 else 8
+        d = (w >> np.uint64(8 * q)) & np.uint64((1 << bits) - 1)
+        assert np.array_equal(got[q], np.bincount(d.astype(np.int64),
+                                                  minlength=256))
+
+
+@pytest.mark.parametrize("n_passes", [4, 7, 12, 15, 16])
 @pytest.mark.parametrize("count", [0, 1, 1000, 3000])
 def test_sort_words_matches_numpy_radix_oracle(n_passes, count):
     w = _words(count + n_passes, count)
