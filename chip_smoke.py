@@ -51,20 +51,40 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks: HBM3 bytes/s,
-# and the non-tensor-core float32 rate, used for the integer ALU work too
+# H100 SXM published peaks: HBM3 bytes/s, and the float32 rate outside
+# the tensor cores, which counts an FMA as two operations (132 SMs x 128
+# lanes x 2 x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
-# 64-bit integer operations a key: splitmix64 is 3 shifts, 3 xors and 2
-# multiplies; combine64 adds a compare, 2 selects, a rotate (3), an xor, an
-# add and a second mix; a MinHash evaluation adds the addend, the mask
-# select and the running minimum to one mix
-MIX64_OPS = 8
-COMBINE64_OPS = 2 * MIX64_OPS + 8
-MINHASH_OPS = MIX64_OPS + 3
-# a column's score terms: two popcounts, the union, the divide, the
-# weighted add and the norm's add
-MATCH_COLUMN_OPS = 6
+# integer (and other non-FMA) work: one instruction a scheduler a clock,
+# 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 33.5e12 32-bit
+# lane-operations a second
+INT_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit operations a key. A 64-bit xor-shift is 4 (a funnel shift and a
+# shift for the two words, two xors), a 64-bit multiply 3 (IMAD.WIDE.U32
+# and two IMAD), a 64-bit add, xor, compare, select or rotate 2.
+# splitmix64 is three xor-shifts and two multiplies; combine64 adds the
+# order compare, two selects, the rotate, the xor, the add and a second
+# mix; a MinHash evaluation is the add, the chain with only the low word
+# of the last xor-shift (2), and the running minimum (1)
+MIX64_OPS = 3 * 4 + 2 * 3
+COMBINE64_OPS = 2 * MIX64_OPS + 6 * 2
+MINHASH_OPS = 2 + 4 + 3 + 4 + 3 + 2 + 1
+# tri-decode, in uint32: a search step is the midpoint (an add and a
+# halving), mid - 1, the two row products, their halving and difference,
+# the compare and two selects; the fixed part is n - 1, the start of hi
+# (a compare, a subtraction and a select), the final row's cum (5) and j (2)
+TRI_STEP_OPS = 10
+TRI_FIXED_OPS = 1 + 3 + 5 + 2
+# match: a merge step is a compare and an advance; a record column's valid
+# count is a popcount of a shifted, masked 64-bit mask word, done once a
+# record; a pair column's integer term is the union (an add and a
+# subtraction), its float terms the divide, the weighted multiply and add,
+# and the norm's add
+MATCH_STEP_OPS = 2
+MATCH_RECORD_COLUMN_OPS = 7
+MATCH_COLUMN_OPS = 2
+MATCH_COLUMN_FLOPS = 4
 REPS = 10
 SYN1M_ENTITIES = 400_000
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
@@ -132,10 +152,12 @@ def timings(kernel, plain, library=None):
             "call_ms": call_ms(kernel)}
 
 
-def bound(bytes_moved, ops):
-    """Least time in ms: the larger of the byte time and the op time."""
+def bound(bytes_moved, ops, flops=0):
+    """Least time in ms: the larger of the byte time and the operation
+    time (32-bit integer operations at INT_OPS_PER_S, float32 ones at
+    VECTOR_OPS_PER_S)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / VECTOR_OPS_PER_S * 1e3
+    t_ops = (ops / INT_OPS_PER_S + flops / VECTOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,7 +201,7 @@ def check_tri_decode(calls):
                  zip(td.tri_decode(*ext), td.tri_decode_torch(*ext)))
     local, size, steps = calls[0]
     count = local.numel()
-    b_ms, b_by = bound(16 * count, count * (12 * steps + 10))
+    b_ms, b_by = bound(16 * count, count * (TRI_STEP_OPS * steps + TRI_FIXED_OPS))
     return {"name": "tri_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/tri_decode.cu",
             "replaces": "src/repro/kernels/pairs/pairs.py:61",
@@ -306,14 +328,16 @@ def check_match(calls):
     # the operations this run's data needs: in each column where both rows
     # have valid slots, a merge of the two sorted valid runs (at most
     # na + nb - 1 steps of a compare and an advance), then the column's
-    # score terms
+    # score terms; each record column's valid count once
     n_valid = torch.stack([msk[:, lo:hi].sum(1) for lo, hi
                            in zip(col_off[:-1], col_off[1:])], 1)
     live = valid.bool()
     na, nb = n_valid[aa[live].long()], n_valid[bb[live].long()]
-    steps = int(torch.where((na > 0) & (nb > 0), na + nb, 0).sum())
-    ops = 2 * steps + MATCH_COLUMN_OPS * int(live.sum()) * len(widths)
-    b_ms, b_by = bound(bytes_moved, ops)
+    steps = int(torch.where((na > 0) & (nb > 0), na + nb - 1, 0).sum())
+    columns = int(live.sum()) * len(widths)
+    b_ms, b_by = bound(bytes_moved, MATCH_STEP_OPS * steps + MATCH_COLUMN_OPS * columns
+                       + MATCH_RECORD_COLUMN_OPS * rows * len(widths),
+                       MATCH_COLUMN_FLOPS * columns)
     err = max_abs_err(zip(got, want))
     del got, want
     return {"name": "match", "route": "cuda",
@@ -363,8 +387,31 @@ def check_combine64(rec):
                      f"{tuple(a.shape)} key pairs"}
 
 
+def off_alignment(x):
+    """A copy of ``x`` whose data starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
 def check_minhash(rec):
+    """The largest launch is timed; the largest at each token width is
+    also timed as given and from a copy off its 16-byte alignment, which
+    takes the kernel's generic loop, held equal to the aligned result."""
     from repro_torch.kernels.minhash import minhash
+    by_width = {}
+    for t, (args, _) in sorted(rec["by_width"].items()):
+        tok, mask, m, seed = args
+        odd_tok, odd_mask = off_alignment(tok), off_alignment(mask)
+        assert_equal(f"minhash T={t} off alignment",
+                     [(minhash.minhash(odd_tok, odd_mask, m, seed),
+                       minhash.minhash(tok, mask, m, seed))])
+        by_width[str(t)] = {
+            "rows": tok.shape[0], "valid": int(mask.sum()),
+            "ms": device_ms(lambda: minhash.minhash(tok, mask, m, seed)),
+            "unaligned_ms": device_ms(lambda: minhash.minhash(odd_tok, odd_mask, m, seed))}
+        del odd_tok, odd_mask
     tok, mask, m, seed = rec["args"]
     r, t = tok.shape
     # only valid tokens need reading and hashing; the mask is read whole
@@ -375,6 +422,7 @@ def check_minhash(rec):
             **check_recorded(rec, lambda: minhash.minhash(tok, mask, m, seed),
                              lambda: minhash.minhash_torch(tok, mask, m, seed),
                              r * t + live * 8 + r * m * 8, live * m * MINHASH_OPS),
+            "by_width": by_width,
             "shape": f"{rec['launches']} launches checked, timed: R={r} T={t} "
                      f"M={m} ({live} valid tokens)"}
 
@@ -386,23 +434,40 @@ def check_cms(rec):
     # only live entries' indices need reading; the mask is read whole and
     # the sketch written once
     live = int(mask.sum())
-    sketch = torch.zeros((depth, width), dtype=torch.int32, device=idx.device)
-    upd = mask.to(torch.int32)
+    # library_ms: one scatter_add_ into the zeroed, flattened sketch; the
+    # offset indices and the int32 update are built outside the timed call
+    flat = torch.zeros(depth * width, dtype=torch.int32, device=idx.device)
+    offsets = torch.arange(depth, dtype=torch.int64, device=idx.device) * width
+    flat_idx = (idx.long() + offsets[:, None]).reshape(-1)
+    upd = mask.to(torch.int32).repeat(depth)
+    # the dead entries' adds of zero: how many land on each row's most
+    # common dead bucket (the one scatter_add_ serialises on it)
+    dead = idx[:, ~mask]
+    crowd = max((int(torch.unique(row, return_counts=True)[1].max())
+                 for row in dead if row.numel()), default=0)
+    del dead
 
-    def index_add():
-        for d in range(depth):
-            sketch[d].index_add_(0, idx[d], upd)
+    def compact_scatter():
+        # the same function from PyTorch calls that skip the dead entries:
+        # the live entries compacted, then one scatter_add_ into a zeroed sketch
+        sel = (idx[:, mask.nonzero().squeeze(1)].long() + offsets[:, None]).reshape(-1)
+        return torch.zeros(depth * width, dtype=torch.int32, device=idx.device) \
+            .scatter_add_(0, sel, torch.ones_like(sel, dtype=torch.int32))
 
+    assert_equal("cms compact + scatter_add_",
+                 [(compact_scatter().view(depth, width), cms.cms_update(idx, mask, width))])
     return {"name": "cms_update", "route": "cuda",
             "source": "src/repro_torch/csrc/cms.cu",
             "replaces": "src/repro/kernels/cms/cms.py:42",
-            # library_ms: the per-row index_add_ on the same indices
             **check_recorded(rec, lambda: cms.cms_update(idx, mask, width),
                              lambda: cms.cms_update_torch(idx, mask, width),
                              depth * live * 4 + n + depth * width * 4,
-                             depth * live, index_add),
+                             depth * live,
+                             lambda: flat.scatter_add_(0, flat_idx, upd)),
+            "compact_scatter_ms": device_ms(compact_scatter),
             "shape": f"{rec['launches']} launches checked, timed: depth={depth} "
-                     f"N={n} width={width} ({live} live)"}
+                     f"N={n} width={width} ({live} live; {crowd} dead entries "
+                     f"in a row's most common dead bucket)"}
 
 
 def record_launches(run, kernels):
@@ -452,6 +517,12 @@ def record_launches(run, kernels):
             rec["launches"] += 1
             if args[0].numel() > rec["size"]:
                 rec["args"], rec["size"] = args, args[0].numel()
+            if name == "minhash":
+                # the largest launch at each token width is timed
+                wide = rec.setdefault("by_width", {})
+                t = args[0].shape[1]
+                if args[0].numel() > wide.get(t, (None, -1))[1]:
+                    wide[t] = (args, args[0].numel())
             return out
         return call
 
@@ -626,6 +697,9 @@ def main() -> int:
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}) library_ms={row['library_ms']} "
               f"call_ms={row['call_ms']:.4f} [{row['shape']}]", flush=True)
+        for key in ("compact_scatter_ms", "by_width"):
+            if key in row:
+                print(f"kernel {row['name']}: {key}={row[key]}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,12 @@
 
 The kernel (``csrc/cms.cu``) replaces the TPU kernel ``cms_update_pallas``
 (``src/repro/kernels/cms/cms.py:42``): ``out[d, idx[d, n]] += mask[n]``
-into a zeroed (depth, width) int32 sketch. It is memory-bound on the
-H100; entries of one warp that hit the same bucket (the skew of an
-over-sized block) are combined with ``__match_any_sync`` before one
-global atomic. The counts are exact, so the kernel and the plain
-per-row ``index_add_`` agree on every bit.
+into a zeroed (depth, width) int32 sketch. One pass over the entries
+serves every row: a warp loads 16 mask bytes a lane, compacts its live
+entries, and adds each live (entry, row) with a global atomic; entries of
+one warp that hit the same bucket (the skew of an over-sized block) are
+combined with ``__match_any_sync`` first. The counts are exact, so the
+kernel and the plain per-row ``index_add_`` agree on every bit.
 """
 from __future__ import annotations
 

@@ -2,11 +2,11 @@
 
 The kernel (``csrc/minhash.cu``) replaces the TPU kernel ``minhash_pallas``
 (``src/repro/kernels/minhash/minhash.py:65``). It is integer-ALU work on
-the H100 (R*T*M splitmix64 chains): a block stages a tile of rows' valid
-tokens in shared memory, so each token is read from device memory once,
-and each thread keeps one (row, hash) running minimum. The plain version
-is the JAX package's ``core/minhash.minhash_tokens`` loop on int64 bit
-patterns; the two agree on every bit.
+the H100 (the splitmix64 chain): a thread owns one row and eight of its
+hashes, with the addends and minima in registers; a masked slot hashes the
+row's first valid token instead, so the token loop has no branch. The
+plain version is the JAX package's ``core/minhash.minhash_tokens`` loop on
+int64 bit patterns; the two agree on every bit.
 """
 from __future__ import annotations
 
@@ -19,13 +19,11 @@ from .._build import Kernel, check_cuda, ptr
 from ..hash64.hash64 import GAMMA, mix64_torch
 
 MH_SEED = 0x3141
-# the kernel's shared memory (48 KB) holds the per-hash addends and one
-# tile row's minima for up to this many hashes
-MAX_HASHES = 1024
 
 KERNEL = Kernel("minhash", "minhash.cu", "minhash_launch",
-                [ctypes.c_void_p] * 4
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64,
+                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_int])
 
 
 def hash_addends(num_hashes: int, seed: int = MH_SEED):
@@ -63,14 +61,13 @@ def minhash(tokens: torch.Tensor, mask: torch.Tensor, num_hashes: int,
         return minhash_torch(tokens, mask, num_hashes, seed)
     check_cuda("tokens", tokens, torch.int64)
     check_cuda("mask", mask, torch.bool)
-    if not 0 < num_hashes <= MAX_HASHES:
-        raise ValueError(f"num_hashes {num_hashes} outside [1, {MAX_HASHES}]")
+    if num_hashes < 1:
+        raise ValueError(f"num_hashes {num_hashes} is not positive")
     rows, width = tokens.shape
     out = torch.empty((rows, num_hashes), dtype=torch.int64,
                       device=tokens.device)
     if rows:
-        adds = torch.tensor(hash_addends(num_hashes, seed), dtype=torch.int64,
-                            device=tokens.device)
-        KERNEL(ptr(tokens), ptr(mask), ptr(adds), ptr(out), rows, width,
-               num_hashes)
+        # the kernel computes hash_addends(num_hashes, seed) itself
+        KERNEL(ptr(tokens), ptr(mask), seed & u64.MASK64, ptr(out), rows,
+               width, num_hashes)
     return out

@@ -217,3 +217,93 @@ def test_cms_kernel_matches_plain(dev, skew):
     got = cms.cms_update(idx, mask, width)
     assert torch.equal(got, cms.cms_update_torch(idx, mask, width))
     assert int(got[0].sum()) == int(mask.sum())
+
+
+@pytest.mark.parametrize("t", [0, 1, 7, 8, 24, 33, 64, 129])
+def test_minhash_kernel_widths_and_masks(dev, t):
+    """Hash counts from 1 past the old 1024 limit, masks with holes, rows
+    with no valid token, the tokens 0 and 0xFFFFFFFF, rows that are not
+    16-byte aligned (the generic loop at the template widths), and seeds
+    up to 2**64 - 1."""
+    from repro_torch.kernels.minhash import minhash
+    rng = np.random.default_rng(t)
+    r = 3001
+    tok = rng.integers(0, 1 << 32, (r, t), dtype=np.int64)
+    tok[::5] = 0
+    tok[1::7] = 0xFFFFFFFF
+    mask = rng.random((r, t)) < 0.6                 # holes, not prefixes
+    mask[3::13] = True
+    mask[::11] = False                              # rows with no valid token
+    for m in (1, 24, 1024, 1500):
+        tk = torch.from_numpy(tok).to(dev)
+        mk = torch.from_numpy(mask).to(dev)
+        got = minhash.minhash(tk, mk, m)
+        assert torch.equal(got, minhash.minhash_torch(tk, mk, m)), m
+        assert bool((got[::11] == 0xFFFFFFFF).all())
+        # one int64 and one byte in: rows start off their 16-byte alignment
+        flat = torch.zeros(r * t + 1, dtype=torch.int64, device=dev)
+        flat[1:] = tk.reshape(-1)
+        fm = torch.zeros(r * t + 1, dtype=torch.bool, device=dev)
+        fm[1:] = mk.reshape(-1)
+        odd_t, odd_m = flat[1:].view(r, t), fm[1:].view(r, t)
+        assert torch.equal(minhash.minhash(odd_t, odd_m, m), got), m
+    for seed in (0, 12345, (1 << 64) - 1):          # addends made on the card
+        assert torch.equal(minhash.minhash(tk, mk, 24, seed),
+                           minhash.minhash_torch(tk, mk, 24, seed)), seed
+    with pytest.raises(ValueError):
+        minhash.minhash(tk, mk, 0)
+
+
+def _cms_check(cms, idx, mask, width):
+    got = cms.cms_update(idx, mask, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cms.cms_update_torch(idx, mask, width))
+    assert int(got.sum()) == idx.shape[0] * int(mask.sum())
+
+
+@pytest.mark.parametrize("depth", [1, 4, 6])
+@pytest.mark.parametrize("log_width", [12, 15, 16, 20, 22])
+def test_cms_kernel_widths_depths_sizes(dev, log_width, depth):
+    """Sizes around the 16-entry mask loads; a mask with no live entry,
+    and one that is not 16-byte aligned (an offset view)."""
+    from repro_torch.kernels.cms import cms
+    width = 1 << log_width
+    gen = torch.Generator(device=dev).manual_seed(log_width * 10 + depth)
+    for n in (1, 15, 17, (1 << 24) + 3):
+        idx = torch.randint(0, width, (depth, n), device=dev, dtype=torch.int32,
+                            generator=gen)
+        mask = torch.rand(n + 1, device=dev, generator=gen) < 0.3
+        _cms_check(cms, idx, mask[:n], width)
+        _cms_check(cms, idx, mask[1:], width)
+        _cms_check(cms, idx, torch.zeros(n, dtype=torch.bool, device=dev), width)
+    empty = torch.zeros((depth, 0), dtype=torch.int32, device=dev)
+    got = cms.cms_update(empty, torch.zeros(0, dtype=torch.bool, device=dev), width)
+    assert got.shape == (depth, width) and not bool(got.any())
+
+
+def test_cms_kernel_one_bucket_holds_every_key(dev):
+    """Every live entry of 2^24 in one bucket of each row: every warp's
+    atomics fall on one address (the skew of an over-sized block)."""
+    from repro_torch.kernels.cms import cms
+    n, width = 1 << 24, 1 << 20
+    idx = torch.tensor([[7], [width - 1], [0], [123_456]], dtype=torch.int32,
+                       device=dev).expand(4, n).contiguous()
+    mask = torch.rand(n, device=dev, generator=torch.Generator(device=dev)
+                      .manual_seed(1)) < 0.9
+    _cms_check(cms, idx, mask, width)
+    mask[:] = True
+    _cms_check(cms, idx, mask, width)
+
+
+def test_cms_kernel_iteration_one_layout(dev):
+    """The HDB iteration-1 key rows: 120 intersection slots a record with
+    a valid prefix of about 15, and keys repeated across records."""
+    from repro_torch.kernels.cms import cms
+    rng = np.random.default_rng(9)
+    records, slots, width = 300_000, 120, 1 << 20
+    valid = rng.integers(0, 31, records)
+    mask = (np.arange(slots)[None, :] < valid[:, None]).reshape(-1)
+    pool = rng.integers(0, width, (4, 50_000))
+    pick = rng.integers(0, 50_000, records * slots)
+    idx = np.ascontiguousarray(pool[:, pick].astype(np.int32))
+    _cms_check(cms, torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev), width)

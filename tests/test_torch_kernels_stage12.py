@@ -48,7 +48,7 @@ def _minhash_both(tokens, mask, m):
 
 
 @pytest.mark.parametrize("r,t,m", [(8, 16, 8), (64, 128, 24), (100, 70, 16),
-                                   (257, 129, 32)])
+                                   (257, 129, 32), (300, 8, 24), (300, 24, 24)])
 def test_minhash_matches_pallas(r, t, m):
     rng = np.random.default_rng(r * 1000 + t)
     tokens = rng.integers(0, 1 << 32, (r, t), dtype=np.uint64).astype(np.uint32)
@@ -67,6 +67,19 @@ def test_minhash_mask_edge_cases_match_pallas(mask_kind):
     else:
         mask = np.repeat([[True], [False]], [16, 16], axis=0) * np.ones((1, 16), bool)
     _minhash_both(tokens, mask, 8)
+
+
+@pytest.mark.parametrize("seed", [0, 0x3141, (1 << 64) - 1])
+def test_minhash_addends_match_pallas_constants(seed):
+    """The plain version's per-hash addends (which the kernel computes from
+    the seed on the card) are the JAX kernel's ``add_hi``/``add_lo`` words."""
+    import importlib
+    jax_mh = importlib.import_module("repro.kernels.minhash.minhash")
+    mh = importlib.import_module("repro_torch.kernels.minhash.minhash")
+    m = 40
+    got = [a & 0xFFFFFFFFFFFFFFFF for a in mh.hash_addends(m, seed)]
+    want = [((seed + 977 * i + 1) * jax_mh._GAMMA) & jax_mh._MASK64 for i in range(m)]
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
@@ -134,4 +147,15 @@ def test_cms_update_heavy_duplicates_match_pallas():
     hot = rng.random(n) < 0.8
     idx[:, hot] = rng.integers(0, width, (depth, 1))
     mask = rng.random(n) < 0.9
+    _cms_both(idx, mask, width)
+
+
+def test_cms_update_iteration_one_layout_matches_pallas():
+    """The HDB iteration-1 key rows the kernel is sized for: 120 slots a
+    record, a valid prefix of about 15, keys repeated across records."""
+    rng = np.random.default_rng(13)
+    records, slots, width = 40, 120, 4096
+    mask = (np.arange(slots)[None, :] < rng.integers(0, 31, records)[:, None]).reshape(-1)
+    pool = rng.integers(0, width, (4, 300))
+    idx = pool[:, rng.integers(0, 300, records * slots)]
     _cms_both(idx, mask, width)
