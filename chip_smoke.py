@@ -33,10 +33,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``call_ms`` the time per call from CUDA events around back-to-back
    calls (host gaps included). The radix sort is also held against
    torch.sort at every pass count 4..16, on the SYN1M pair words and on
-   adversarial words, and timed as a whole sort (``sort_ms``).
+   adversarial words, and timed as a whole sort (``sort_ms``);
+5. streaming (``repro_torch.streaming``):
+   a. the smoke config ingested in 3 parts through StreamingEngine (fused
+      matcher, one query) and DedupPipeline.extend (both match back ends)
+      on cuda and on cpu: ledger, probes, matched pairs and labels equal;
+   b. STREAM100K, the acceptance workload of benchmarks/bench_streaming.py
+      (a 100,000-record store, 1,000-record deltas, max_block_size 64):
+      the base build, a warm delta and a timed delta (launch counts zeroed
+      just before and read just after) beside the full re-block by the
+      batch port, which the store must equal; the timed delta replayed on
+      a store built the same way with every launch held against its plain
+      version as it happens; a third delta profiled;
+   c. the SYN stream: the SYN1M spec at SYN_STREAM_ENTITIES in a seeded
+      arrival order through DedupPipeline.extend (a base, then ten 1%
+      deltas, the last profiled); every kernel must launch; the base and
+      the deltas are replayed on a twin pipeline with every launch held
+      against its plain version as it happens (same counts, same last
+      report); and the last report must equal dedup_corpus on the same
+      rows with an exact pair budget.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+The line before the last is a JSON object with one entry per kernel
+(``launches`` from the SYN1M HDB run; ``stream100k_delta_launches`` and
+``syn_stream_launches`` from phase 5); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
 import json
@@ -87,11 +107,21 @@ MATCH_COLUMN_OPS = 2
 MATCH_COLUMN_FLOPS = 4
 REPS = 10
 SYN1M_ENTITIES = 400_000
+# STREAM100K, the streaming acceptance workload of benchmarks/bench_streaming.py:
+# a 100,000-record store absorbing 1% deltas
+STREAM_RECORDS = 100_000
+STREAM_DELTA = 1_000
+# the SYN stream: the SYN1M spec arriving in a seeded order, a base then
+# SYN_STREAM_DELTAS deltas of 1% each through DedupPipeline.extend. Cut
+# from SYN1M's 400,000 entities: at 200,000 one 1% delta took 54 s of host
+# time on an H100 (PERF.md section 4)
+SYN_STREAM_ENTITIES = 100_000
+SYN_STREAM_DELTAS = 10
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
 TRI_EXTREME_SLOTS = 1 << 20
 
 
-RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.")
+RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.", "stream.")
 
 
 def _kernel_events(prof):
@@ -470,6 +500,63 @@ def check_cms(rec):
                      f"in a row's most common dead bucket)"}
 
 
+def launch_sites():
+    """name: (module the main path calls the wrapper through, wrapper name,
+    plain version with the wrapper's arguments)."""
+    from repro_torch.kernels.cms import cms, ops as cms_ops
+    from repro_torch.kernels.hash64 import hash64, ops as hash64_ops
+    from repro_torch.kernels.match import match as mk, ops as match_ops
+    from repro_torch.kernels.minhash import minhash, ops as minhash_ops
+    from repro_torch.kernels.pairs import ops as pair_ops, tri as td
+    from repro_torch.kernels.sort import ops as sort_ops
+    from repro_torch.kernels.sort import radix
+    return {"tri_decode": (pair_ops, "tri_decode", td.tri_decode_torch),
+            "radix_sort": (sort_ops, "sort_pass",
+                           lambda w, q, bits, totals: radix.sort_pass_torch(w, q, bits)),
+            "radix_digit_counts": (sort_ops, "digit_counts", radix.digit_counts_torch),
+            "match": (match_ops, "match_tiles", mk.match_tiles_torch),
+            "mix64": (hash64_ops, "mix64_bulk", hash64.mix64_torch),
+            "combine64": (hash64_ops, "combine64", hash64.combine64_torch),
+            "minhash": (minhash_ops, "minhash", minhash.minhash_torch),
+            "cms_update": (cms_ops, "cms_update", cms.cms_update_torch)}
+
+
+# kernels whose every main-path launch record_launches keeps for phase 4
+RECORDED = ("tri_decode", "radix_sort", "match")
+
+
+def equal_outputs(out, want):
+    if isinstance(out, tuple):
+        return all(torch.equal(x, y) for x, y in zip(out, want))
+    return torch.equal(out, want)
+
+
+def wrap_launches(run, kernels, on_launch):
+    """Run ``run`` with each kernel wrapper wrapped where the main path
+    calls it; ``on_launch(name, args, out)`` sees every call that launched
+    the kernel (calls that took no launch, such as empty inputs, pass)."""
+    sites = launch_sites()
+    by_name = {k.name: k for k in kernels}
+    original = {name: getattr(mod, attr) for name, (mod, attr, _) in sites.items()}
+
+    def wrapper(name):
+        def call(*args):
+            before = by_name[name].launches
+            out = original[name](*args)
+            if by_name[name].launches != before:
+                on_launch(name, args, out)
+            return out
+        return call
+
+    for name, (mod, attr, _) in sites.items():
+        setattr(mod, attr, wrapper(name))
+    try:
+        run()
+    finally:
+        for name, (mod, attr, _) in sites.items():
+            setattr(mod, attr, original[name])
+
+
 def record_launches(run, kernels):
     """Run ``run`` with each kernel wrapper wrapped where the main path
     calls it. Returns {kernel name: record}: for tri_decode, radix_sort and
@@ -478,62 +565,45 @@ def record_launches(run, kernels):
     keys would not all fit on the card) a dict with the launch count and the arguments
     of the largest launch, after every launch was held equal to its plain
     version as it happened."""
-    from repro_torch.kernels.cms import cms, ops as cms_ops
-    from repro_torch.kernels.hash64 import hash64, ops as hash64_ops
-    from repro_torch.kernels.match import ops as match_ops
-    from repro_torch.kernels.minhash import minhash, ops as minhash_ops
-    from repro_torch.kernels.pairs import ops as pair_ops
-    from repro_torch.kernels.sort import ops as sort_ops
-    from repro_torch.kernels.sort import radix
-    # name: (module the main path calls through, wrapper, plain version)
-    sites = {"tri_decode": (pair_ops, "tri_decode", None),
-             "radix_sort": (sort_ops, "sort_pass", None),
-             "radix_digit_counts": (sort_ops, "digit_counts",
-                                    radix.digit_counts_torch),
-             "match": (match_ops, "match_tiles", None),
-             "mix64": (hash64_ops, "mix64_bulk", hash64.mix64_torch),
-             "combine64": (hash64_ops, "combine64", hash64.combine64_torch),
-             "minhash": (minhash_ops, "minhash", minhash.minhash_torch),
-             "cms_update": (cms_ops, "cms_update", cms.cms_update_torch)}
-    by_name = {k.name: k for k in kernels}
-    calls = {name: [] if plain is None else
-             {"launches": 0, "args": None, "size": -1}
-             for name, (_, _, plain) in sites.items()}
-    original = {name: getattr(mod, attr) for name, (mod, attr, _) in sites.items()}
+    sites = launch_sites()
+    calls = {name: [] if name in RECORDED else {"launches": 0, "args": None, "size": -1}
+             for name in sites}
 
-    def recorder(name, plain):
-        def call(*args):
-            before = by_name[name].launches
-            out = original[name](*args)
-            if by_name[name].launches == before:
-                return out
-            if plain is None:
-                calls[name].append(args)
-                return out
-            if not torch.equal(out, plain(*args)):
-                raise AssertionError(f"{name}: a main-path launch differs "
-                                     "from the plain version")
-            rec = calls[name]
-            rec["launches"] += 1
-            if args[0].numel() > rec["size"]:
-                rec["args"], rec["size"] = args, args[0].numel()
-            if name == "minhash":
-                # the largest launch at each token width is timed
-                wide = rec.setdefault("by_width", {})
-                t = args[0].shape[1]
-                if args[0].numel() > wide.get(t, (None, -1))[1]:
-                    wide[t] = (args, args[0].numel())
-            return out
-        return call
+    def on_launch(name, args, out):
+        if name in RECORDED:
+            calls[name].append(args)
+            return
+        if not equal_outputs(out, sites[name][2](*args)):
+            raise AssertionError(f"{name}: a main-path launch differs "
+                                 "from the plain version")
+        rec = calls[name]
+        rec["launches"] += 1
+        if args[0].numel() > rec["size"]:
+            rec["args"], rec["size"] = args, args[0].numel()
+        if name == "minhash":
+            # the largest launch at each token width is timed
+            wide = rec.setdefault("by_width", {})
+            t = args[0].shape[1]
+            if args[0].numel() > wide.get(t, (None, -1))[1]:
+                wide[t] = (args, args[0].numel())
 
-    for name, (mod, attr, plain) in sites.items():
-        setattr(mod, attr, recorder(name, plain))
-    try:
-        run()
-    finally:
-        for name, (mod, attr, _) in sites.items():
-            setattr(mod, attr, original[name])
+    wrap_launches(run, kernels, on_launch)
     return calls
+
+
+def check_launches(run, kernels):
+    """Run ``run`` holding every kernel launch against its plain version as
+    it happens (tolerance: exact equality). Returns the launch counts."""
+    sites = launch_sites()
+    counts = {name: 0 for name in sites}
+
+    def on_launch(name, args, out):
+        if not equal_outputs(out, sites[name][2](*args)):
+            raise AssertionError(f"{name}: a launch differs from the plain version")
+        counts[name] += 1
+
+    wrap_launches(run, kernels, on_launch)
+    return counts
 
 
 def smoke_pipeline():
@@ -558,14 +628,15 @@ def smoke_pipeline():
               f"{gpu.num_components} components (cuda == cpu)", flush=True)
 
 
-def profile_breakdown(run):
+def profile_breakdown(run, tag="SYN1M"):
     """Run ``run`` under torch.profiler; print the stage ranges, the
     device's busy time and idle share of the wall time, the top device
-    kernels and the top host ops."""
+    kernels and the top host ops, each line marked with ``tag``. Returns
+    (run's result, wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -573,20 +644,21 @@ def profile_breakdown(run):
         calls, us = kernels.get(e.name, (0, 0.0))
         kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in kernels.values()) / 1e6
-    print(f"profile: wall_s={wall:.3f} device_busy_s={busy:.3f} "
+    print(f"profile {tag}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
           f"device_idle_share={1 - busy / wall:.4f}", flush=True)
     events = prof.key_averages()
     for e in sorted(events, key=lambda e: e.key):
         if e.key.startswith(RANGE_PREFIXES) and e.cpu_time_total:
-            print(f"profile range {e.key}: calls={e.count} "
+            print(f"profile {tag} range {e.key}: calls={e.count} "
                   f"host_s={e.cpu_time_total / 1e6:.3f}", flush=True)
     for name, (calls, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"profile device kernel {name[:70]}: calls={calls} "
+        print(f"profile {tag} device kernel {name[:70]}: calls={calls} "
               f"device_s={us / 1e6:.4f}", flush=True)
     host_ops = [e for e in events if not e.key.startswith(RANGE_PREFIXES)]
     for e in sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:10]:
-        print(f"profile host op {e.key[:60]}: calls={e.count} "
+        print(f"profile {tag} host op {e.key[:60]}: calls={e.count} "
               f"host_s={e.self_cpu_time_total / 1e6:.4f}", flush=True)
+    return out, wall
 
 
 def check_components(tag, rep):
@@ -654,6 +726,199 @@ def full_size(kernels):
     return launches, calls
 
 
+def synced(fn):
+    """(fn(), seconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stream_smoke():
+    """Phase 5a: the streaming smoke on cuda and on cpu, held equal."""
+    from repro_torch.streaming import smoke
+    gpu, cpu = smoke.smoke_run("cuda"), smoke.smoke_run("cpu")
+    differ = smoke.differing(gpu, cpu)
+    if differ:
+        raise AssertionError(f"stream smoke: {differ} differ cuda vs cpu")
+    n_pairs, n_matched, label = gpu["extend auto"][-1]
+    if not (len(gpu["ledger"][0]) == n_pairs and 0 < n_matched):
+        raise AssertionError("stream smoke: empty ledger or no match")
+    print(f"stream smoke: {label.shape[0]} records in 3 parts, {n_pairs} ledger "
+          f"pairs, {n_matched} matched, {len(np.unique(label))} components, "
+          f"{len(gpu['probes'])} probes (cuda == cpu: ledger, probes, matched "
+          "pairs, component_of for the engine and both extend back ends)", flush=True)
+
+
+def stream_keys(seed, n, card_n):
+    """The key layout of benchmarks/bench_streaming.py:28-42 on the card:
+    8 small keys at cardinality card_n // 4 and 2 hot keys at cardinality
+    24 a record, row-deduped by the port's dedupe_row_keys."""
+    from repro_torch.core import blocks, u64
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, max(int(card_n * 0.25), 4), (n, 8))
+    hot = rng.integers(0, 24, (n, 2)) + (1 << 40)
+    ids = np.concatenate([small, hot], axis=1).astype(np.uint64)
+    k64 = ids * np.uint64(0x9E3779B97F4A7C15)
+    return blocks.dedupe_row_keys(u64.from_numpy_u64(k64, "cuda"),
+                                  torch.ones(ids.shape, dtype=torch.bool, device="cuda"))
+
+
+def stream100k(kernels):
+    """Phase 5b: STREAM100K. The base ingest, a warm delta, then the timed
+    delta with every launch count zeroed just before and read just after;
+    the store against the batch port on the same rows (the full re-block,
+    timed); the timed delta again on a store built the same way with every
+    launch held against its plain version as it happens; a third delta of
+    the same layout, profiled. Returns the timed delta's launch counts."""
+    from repro_torch.core import hdb, pairs
+    from repro_torch.streaming import BlockStore, DeltaBlocker
+    cfg = hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 18)
+    n, d = STREAM_RECORDS, STREAM_DELTA
+    total = n + 2 * d
+    keys, valid = stream_keys(0, total, total)
+    parts = [slice(0, n), slice(n, n + d), slice(n + d, total)]
+
+    def ingest(blk, part):
+        return synced(lambda: blk.ingest_keys(keys[part], valid[part]))
+
+    def warm_store():
+        blk = DeltaBlocker(BlockStore(cfg, device="cuda"))
+        return blk, [ingest(blk, part)[1] for part in parts[:2]]
+
+    torch.cuda.reset_peak_memory_stats()
+    blk, (base_s, warm_s) = warm_store()
+    for k in kernels:
+        k.launches = 0
+    rep, delta_s = ingest(blk, parts[2])
+    launches = {k.name: k.launches for k in kernels}
+    store = blk.store
+    # (level, rows replaced, entries reclassified, keys changed, rows dirty)
+    levels = [(r.level, r.n_replaced, r.n_reclassified, r.n_changed_keys, r.n_dirty_rows)
+              for r in rep.levels]
+    print(f"STREAM100K: base_records={n} base_build_s={base_s:.4f} warm_delta_s="
+          f"{warm_s:.4f} delta_records={d} delta_ingest_s={delta_s:.4f} "
+          f"pairs_added={rep.num_pairs_added} pairs_retracted="
+          f"{len(rep.pairs_retracted[0])} ledger_pairs={store.ledger.num_pairs} "
+          f"levels={levels} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"launches={launches}", flush=True)
+
+    def reblock(m):
+        # the calls benchmarks/bench_streaming.py:45-49 times
+        res = hdb.hashed_dynamic_blocking(keys[:m], valid[:m], cfg, device="cuda")
+        blocks = pairs.build_blocks(res, device="cuda")
+        return res, pairs.dedupe_pairs(blocks, budget=blocks.num_pair_slots + 1,
+                                       device="cuda")
+
+    reblock(4096)
+    (res, want), reblock_s = synced(lambda: reblock(total))
+    want_blk = pairs.build_blocks(res, min_size=1, device="cuda")
+    got, got_blk = store.candidate_pairs(), store.accepted_blocks(min_size=1)
+    for f in ("a", "b", "src_size"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"STREAM100K: ledger {f} differs from the batch port")
+    for f in ("key_hi", "key_lo", "start", "size", "members"):
+        if not np.array_equal(getattr(got_blk, f), getattr(want_blk, f)):
+            raise AssertionError(f"STREAM100K: accepted blocks {f} differ from the batch port")
+    print(f"STREAM100K: full re-block of {total} records (hashed_dynamic_blocking + "
+          f"build_blocks + exact dedupe_pairs) reblock_s={reblock_s:.4f}, "
+          f"{reblock_s / delta_s:.2f} x the delta; ledger ({len(got.a)} pairs) and "
+          f"accepted blocks ({got_blk.num_blocks}) equal the batch port", flush=True)
+
+    blk2, _ = warm_store()
+    checked = check_launches(lambda: blk2.ingest_keys(keys[parts[2]], valid[parts[2]]),
+                             kernels)
+    if checked != launches or not (np.array_equal(blk2.store.led_pack, store.led_pack)
+                                   and np.array_equal(blk2.store.led_src, store.led_src)):
+        raise AssertionError(f"STREAM100K: the checked delta ({checked}) differs from "
+                             f"the timed one ({launches})")
+    print(f"STREAM100K: the timed delta again on a store built the same way, "
+          f"every launch bit-identical to its plain version: {checked}", flush=True)
+    k3, v3 = stream_keys(1, d, total)
+    profile_breakdown(lambda: blk.ingest_keys(k3, v3), tag="STREAM100K delta")
+    return launches
+
+
+def syn_stream(kernels, entities=SYN_STREAM_ENTITIES):
+    """Phase 5c: the SYN1M corpus in a seeded arrival order through
+    DedupPipeline.extend (fused back end): the base, then the deltas, with
+    every launch count zeroed before the base and read after the last
+    delta (the last one profiled); the same arrivals on a twin pipeline
+    with every launch held against its plain version as it happens; the
+    last report against dedup_corpus on the same rows with an exact pair
+    budget. Returns the timed run's launch counts."""
+    from repro_torch.core import hdb
+    from repro_torch.data import pipeline, synthetic
+    t_phase = time.perf_counter()
+    corpus = synthetic.generate(synthetic.SyntheticSpec(num_entities=entities, seed=5),
+                                device="cuda")
+    n = corpus.num_records
+    arrived = synthetic.corpus_slice(corpus, np.random.default_rng(5).permutation(n))
+    del corpus
+    d = n // 100
+    cuts = [0] + [n - k * d for k in range(SYN_STREAM_DELTAS, -1, -1)]
+    cfg = hdb.HDBConfig(max_block_size=200)
+    pipe = pipeline.DedupPipeline(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        def extend():
+            return pipe.extend(synthetic.corpus_slice(arrived, np.arange(lo, hi)))
+        if i == SYN_STREAM_DELTAS:
+            rep, secs = profile_breakdown(extend, tag="SYN stream delta")
+        else:
+            rep, secs = synced(extend)
+        print(f"SYN stream extend {i} ({'base' if i == 0 else 'delta'}): records="
+              f"{hi - lo} union={rep.num_records} extend_s={secs:.4f} blocking_s="
+              f"{rep.blocking_seconds:.4f} matching_s={rep.matching_seconds:.4f} "
+              f"partition_s={rep.partition_seconds:.4f} candidate_pairs="
+              f"{rep.num_candidate_pairs} matched_pairs={rep.num_matched_pairs} "
+              f"components={rep.num_components}", flush=True)
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    idle = [name for name, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"SYN stream: kernels never launched: {idle}")
+    twin = pipeline.DedupPipeline(cfg, device="cuda")
+    t_check = time.perf_counter()
+    replay = []
+    checked = check_launches(lambda: replay.extend(
+        twin.extend(synthetic.corpus_slice(arrived, np.arange(lo, hi)))
+        for lo, hi in zip(cuts[:-1], cuts[1:])), kernels)
+    again = replay[-1]
+    if checked != launches or not (
+            again.num_candidate_pairs == rep.num_candidate_pairs
+            and again.num_matched_pairs == rep.num_matched_pairs
+            and np.array_equal(again.component_of, rep.component_of)
+            and np.array_equal(again.survivors, rep.survivors)):
+        raise AssertionError(f"SYN stream: the checked replay ({checked}) differs "
+                             f"from the timed run ({launches})")
+    print(f"SYN stream: the base and the deltas again on a twin pipeline, every "
+          f"launch bit-identical to its plain version, same counts and last report "
+          f"({time.perf_counter() - t_check:.1f} s): {checked}", flush=True)
+    del twin
+    total_slots = pipe.store.candidate_pairs().total_slots
+    batch, batch_s = synced(lambda: pipeline.dedup_corpus(
+        arrived, cfg, pair_budget=total_slots + 1, device="cuda"))
+    if not (rep.num_candidate_pairs == batch.num_candidate_pairs
+            and rep.num_matched_pairs == batch.num_matched_pairs
+            and np.array_equal(rep.component_of, batch.component_of)
+            and np.array_equal(rep.survivors, batch.survivors)):
+        raise AssertionError("SYN stream: the last extend differs from dedup_corpus")
+    check_components("SYN stream", rep)
+    print(f"SYN stream: entities={entities} records={n} base={cuts[1]} deltas="
+          f"{SYN_STREAM_DELTAS}x{d} equals dedup_corpus (exact, {total_slots} pair "
+          f"slots, batch_s={batch_s:.4f}): candidate_pairs={rep.num_candidate_pairs} "
+          f"matched_pairs={rep.num_matched_pairs} components={rep.num_components}; "
+          f"max_memory_allocated={peak} launches={launches} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -677,10 +942,9 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     smoke_pipeline()
-    launches, calls = full_size([td.KERNEL, radix.PASS_KERNEL,
-                                 radix.COUNTS_KERNEL, mk.KERNEL,
-                                 hash64.MIX_KERNEL, hash64.COMBINE_KERNEL,
-                                 minhash.KERNEL, cms.KERNEL])
+    kernels = [td.KERNEL, radix.PASS_KERNEL, radix.COUNTS_KERNEL, mk.KERNEL,
+               hash64.MIX_KERNEL, hash64.COMBINE_KERNEL, minhash.KERNEL, cms.KERNEL]
+    launches, calls = full_size(kernels)
     checks = {"tri_decode": check_tri_decode, "radix_sort": check_radix,
               "radix_digit_counts": check_digit_counts,
               "match": check_match, "mix64": check_mix64,
@@ -690,8 +954,16 @@ def main() -> int:
     for name, check in checks.items():
         rows.append(check(calls.pop(name)))
         torch.cuda.empty_cache()
+    del calls
+
+    stream_smoke()
+    stream_launches = stream100k(kernels)
+    torch.cuda.empty_cache()
+    syn_launches = syn_stream(kernels)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["stream100k_delta_launches"] = stream_launches[row["name"]]
+        row["syn_stream_launches"] = syn_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

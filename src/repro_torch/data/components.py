@@ -10,6 +10,7 @@ min record id, which is the label itself. Zero-padded pair tails are
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -73,6 +74,41 @@ def _warn_truncated(max_rounds: int) -> None:
         f"connected_components stopped at max_rounds={max_rounds} before "
         "convergence; labels may merge further — raise max_rounds",
         RuntimeWarning, stacklevel=3)
+
+
+@dataclasses.dataclass
+class ClusterResult:
+    """Host-side clustering outcome (the only values that cross over)."""
+    label: np.ndarray        # (N,) int64 component label = min member id
+    survivors: np.ndarray    # (S,) int64 sorted canonical record ids
+    converged: bool          # False iff truncated at max_rounds
+    rounds: int              # propagation rounds actually run
+
+
+def cluster_edges(num_nodes: int, a: np.ndarray, b: np.ndarray, *,
+                  max_rounds: int = 64, device: DeviceLike = None
+                  ) -> ClusterResult:
+    """Host edge list -> ClusterResult through the device CC path.
+
+    The reference pads edges and nodes to powers of two to bound its jit
+    compiles; padding edges are (0, 0) no-ops and padding nodes are
+    isolated, so the unpadded run gives the same labels, survivors,
+    ``converged`` and ``rounds``.
+    """
+    if len(a) == 0:
+        label = np.arange(num_nodes, dtype=np.int64)
+        return ClusterResult(label=label, survivors=label.copy(),
+                             converged=True, rounds=0)
+    dev = resolve_device(device)
+    at = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+    bt = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
+    label, surv, _, converged, rounds = cluster_pairs_device(
+        num_nodes, at, bt, max_rounds=max_rounds, device=dev)
+    if not converged:
+        _warn_truncated(max_rounds)
+    return ClusterResult(label=label.cpu().numpy().astype(np.int64),
+                         survivors=surv.cpu().numpy().astype(np.int64),
+                         converged=converged, rounds=rounds)
 
 
 def connected_components(num_nodes: int, a: np.ndarray, b: np.ndarray,

@@ -1,7 +1,10 @@
-"""End-to-end batch dedup: keys -> HDB -> pairs -> match -> clusters.
+"""End-to-end dedup: keys -> HDB -> pairs -> match -> clusters.
 
-Port of ``dedup_corpus`` from the JAX package's ``data/pipeline.py``
-(batch mode). ``blocker="hdb"`` blocks with HDB, ``blocker="threshold"``
+Port of the JAX package's ``data/pipeline.py``. ``dedup_corpus`` is the
+batch mode; ``DedupPipeline`` the streaming-consistent one, whose
+``extend(delta)`` absorbs new records through a persistent
+``streaming.BlockStore`` and matches only the new candidate pairs.
+``blocker="hdb"`` blocks with HDB, ``blocker="threshold"``
 with the paper's THR baseline (``core/baselines.py``); everything after
 blocking is shared. The back half runs behind a
 ``match_backend`` knob: ``"host"`` scores on the host and clusters the
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Dict, Optional
 
 import numpy as np
 from torch.profiler import record_function
@@ -24,6 +28,10 @@ from ..core import blocks as blocks_mod
 from ..core import hdb as hdb_mod
 from ..core import pairs as pairs_mod
 from ..device import DeviceLike, resolve_device, synchronize
+from ..kernels.match.ops import packed_host
+from ..streaming.delta import DeltaBlocker
+from ..streaming.engine import ColumnCache
+from ..streaming.store import BlockStore, pack_pair, searchsorted_mask, unpack_pair
 from . import components, matcher
 from .synthetic import Corpus
 
@@ -117,6 +125,102 @@ def dedup_corpus(corpus: Corpus,
         survivors=survivors,
         component_of=label,
     )
+
+
+class DedupPipeline:
+    """Incremental dedup: persistent blocking state + delta matching.
+
+    ``extend(corpus_delta)`` ingests a record delta through the streaming
+    blocker (exact-incremental HDB over the union), matches ONLY the new
+    candidate pairs, drops matches whose candidate pair was retracted,
+    and re-partitions. The returned ``DedupReport`` describes the whole
+    union and equals ``dedup_corpus`` on it (within its pair budget).
+    ``match_backend="host"`` scores on the host and clusters with
+    ``connected_components``; ``"auto"`` runs the fused match kernel and
+    ``cluster_edges``. Everything runs on ``device`` (``None`` means CUDA).
+
+    On the card ``extend`` is slower than ``dedup_corpus`` on the union:
+    the blocker's level state and pair ledger are host numpy, so each
+    delta pays host work in proportion to the store (PERF.md, the SYN
+    stream cell).
+    """
+
+    def __init__(self, cfg: hdb_mod.HDBConfig = hdb_mod.HDBConfig(max_block_size=100),
+                 match_cfg: matcher.MatcherConfig = matcher.MatcherConfig(),
+                 match_backend: str = "auto",
+                 cc_max_rounds: int = 64,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.match_cfg = match_cfg
+        self.match_backend = matcher.resolve_match_backend(match_backend)
+        self.cc_max_rounds = cc_max_rounds
+        self.device = resolve_device(device)
+        self.store = BlockStore(cfg, device=self.device)
+        self.blocker = DeltaBlocker(self.store)
+        self.blocking: Optional[Dict[str, blocks_mod.ColumnBlocking]] = None
+        self._columns = ColumnCache(self.device)
+        # matched pairs as packed a<<32|b, sorted
+        self._matched = np.zeros((0,), np.uint64)
+
+    def extend(self, corpus_delta: Corpus) -> DedupReport:
+        dev = self.device
+        t0 = time.perf_counter()
+        if self.blocking is None:
+            self.blocking = corpus_delta.blocking
+        columns = {name: blocks_mod.TokenColumn(c.tokens.to(dev), c.mask.to(dev))
+                   for name, c in corpus_delta.columns.items()}
+        self._columns.append({name: (c.tokens, c.mask)
+                              for name, c in columns.items()})
+        with record_function("dedup.keys"):
+            keys, valid = blocks_mod.build_keys(columns, self.blocking)
+        # ingest returns host arrays, so its device work is done here
+        report = self.blocker.ingest_keys(keys, valid)
+        t1 = time.perf_counter()
+        a, b, _ = report.pairs_added
+        ra, rb = report.pairs_retracted
+        if len(ra):
+            # blocks dissolved by this delta withdraw their pairs' matches
+            pos, hit = searchsorted_mask(self._matched, pack_pair(ra, rb))
+            keep = np.ones(len(self._matched), bool)
+            keep[pos[hit]] = False
+            self._matched = self._matched[keep]
+        if len(a):
+            cols = self._columns.columns()
+            with record_function("dedup.match"):
+                if self.match_backend == "host":
+                    matched = matcher.match_pairs(cols, a, b, self.match_cfg)
+                    new = pack_pair(a[matched], b[matched])
+                else:
+                    # fused delta match: only the packed matched words return
+                    ca, cb, cnt = matcher.match_compact(
+                        cols, a, b, self.match_cfg, device=dev)
+                    new = packed_host(ca, cb, int(cnt))
+            self._matched = np.union1d(self._matched, new)
+        t2 = time.perf_counter()
+        n = self.store.num_records
+        ma, mb = unpack_pair(self._matched)
+        with record_function("dedup.cluster"):
+            if self.match_backend == "host":
+                label = components.connected_components(
+                    n, ma, mb, max_rounds=self.cc_max_rounds, device=dev)
+                survivors = np.unique(label)
+            else:
+                cres = components.cluster_edges(
+                    n, ma, mb, max_rounds=self.cc_max_rounds, device=dev)
+                label, survivors = cres.label, cres.survivors
+        t3 = time.perf_counter()
+        return DedupReport(
+            num_records=n,
+            num_candidate_pairs=len(self.store.led_pack),
+            num_matched_pairs=len(self._matched),
+            num_components=len(survivors),
+            num_survivors=len(survivors),
+            blocking_seconds=t1 - t0,
+            matching_seconds=t2 - t1,
+            partition_seconds=t3 - t2,
+            survivors=survivors,
+            component_of=label,
+        )
 
 
 def dedup_quality(report: DedupReport, corpus: Corpus) -> dict:

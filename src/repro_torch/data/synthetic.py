@@ -186,6 +186,18 @@ def generate(spec: SyntheticSpec, device: DeviceLike = None) -> Corpus:
                   entity_id=entity_id[perm], num_records=n)
 
 
+def corpus_slice(corpus: Corpus, idx: np.ndarray) -> Corpus:
+    """Row subset of a corpus (to stream it in micro-batches); the columns
+    stay on their device."""
+    idx = np.asarray(idx, np.int64)
+    cols = {}
+    for name, c in corpus.columns.items():
+        rows = torch.from_numpy(idx).to(c.tokens.device)
+        cols[name] = TokenColumn(c.tokens[rows], c.mask[rows])
+    return Corpus(columns=cols, blocking=corpus.blocking,
+                  entity_id=corpus.entity_id[idx], num_records=len(idx))
+
+
 def corpus_from_numpy(columns: Mapping[str, object],
                       blocking: Mapping[str, object], entity_id: np.ndarray,
                       device: DeviceLike = None) -> Corpus:

@@ -1,0 +1,740 @@
+"""DeltaBlocker: exact-incremental HDB iterations over a BlockStore.
+
+Port of the JAX package's ``streaming/delta.py``. Per micro-batch the
+blocker replays Algorithms 1-4 only where the delta can have changed a
+decision, level by level:
+
+1. fold the delta rows' (record, key) entries into the level's CMS (a
+   linear sketch: ``+`` in, ``-`` out, no rebuild; the cms kernel builds
+   the delta's sketch on the card) and mark the touched buckets,
+2. re-estimate only entries that hash into a touched bucket (cached
+   bucket indices make this a gather) and re-run ``hdb.rough_classify``
+   on them,
+3. apply keep-bit flips to the key table (exact count +-1, fingerprint
+   XOR, which is its own inverse),
+4. re-run ``hdb.dedupe_oversized_reps`` over the over-sized key-table
+   slice,
+5. refresh accept/survive bits where a key's exact size or survivorship
+   changed; rows whose surviving-key set (or its sizes) changed are
+   re-intersected through ``hdb.intersect_keys`` (the combine64 kernel on
+   the card) and the change cascades to the next level,
+6. reconcile the accepted-assignment adds/retracts into the blocks CSR and
+   the candidate-pair ledger: only blocks whose membership changed go
+   through ``pairs.dedupe_pairs`` (tri-decode and the radix sort on the
+   card).
+
+The device steps run on the store's device with explicit transfers; the
+rest is host numpy, as in the reference. The reference pads rows to
+powers of two only to bound its jit compiles: every step here is
+row-local, so the unpadded calls give the same rows. The result after any
+ingest sequence equals one batch ``hashed_dynamic_blocking`` run on the
+union. Each step is a ``stream.*`` profiler range (``stream.splice``,
+``stream.ledger`` and ``stream.join`` split the ledger sync).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core import hashing
+from ..core import hdb as hdb_mod
+from ..core import pairs as pairs_mod
+from ..core import sketches, u64
+from .store import (INT32_MAX, SENTINEL_U64, BlockStore, LevelState,
+                    gather_segments, pack_pair, reduce_by_key,
+                    searchsorted_mask, unpack_pair)
+
+logger = logging.getLogger(__name__)
+
+# the pair engine's dedupe sort is chosen by the data (``pairs._sort_kind``);
+# the reference's "comparator"/"radix" knob names its JAX sorts
+SORT_BACKENDS = ("auto",)
+# pairs a ``_shared_max_src`` launch joins
+_JOIN_CHUNK = 8192
+
+
+def host_u64(keys) -> np.ndarray:
+    """Keys as numpy uint64: int64 bit patterns (a tensor or an array)
+    keep their bits, other integer arrays are converted."""
+    if isinstance(keys, torch.Tensor):
+        return u64.to_numpy_u64(keys)
+    arr = np.asarray(keys)
+    if arr.dtype == np.int64:
+        return arr.view(np.uint64).copy()
+    return arr.astype(np.uint64)
+
+
+def _host_bool(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy().astype(bool)
+    return np.asarray(x, bool)
+
+
+def _shared_max_src(ka: torch.Tensor, sa: torch.Tensor,
+                    kb: torch.Tensor) -> torch.Tensor:
+    """Max size over keys shared by the two padded key lists of a pair.
+
+    Sentinel lanes carry size 0, so sentinel-sentinel matches contribute
+    nothing (sizes agree on shared keys, so one side's sizes suffice).
+    """
+    eq = ka[:, :, None] == kb[:, None, :]
+    return torch.where(eq, sa[:, :, None], 0).amax(dim=(1, 2))
+
+
+@dataclasses.dataclass
+class LevelReport:
+    level: int
+    n_replaced: int          # rows whose cached state was swapped
+    n_reclassified: int      # entries re-run through rough_classify
+    n_changed_keys: int      # key-table rows whose count/fp/survivor changed
+    n_dirty_rows: int        # rows re-intersected
+
+
+@dataclasses.dataclass
+class IngestReport:
+    """What one micro-batch did to the store."""
+
+    num_records: int                    # records in this delta
+    pairs_added: Tuple[np.ndarray, np.ndarray, np.ndarray]   # (a, b, src)
+    pairs_retracted: Tuple[np.ndarray, np.ndarray]           # (a, b)
+    levels: List[LevelReport]
+    seconds: float
+
+    @property
+    def num_pairs_added(self) -> int:
+        return len(self.pairs_added[0])
+
+
+@dataclasses.dataclass
+class QueryResult:
+    candidates: np.ndarray   # (C,) distinct candidate rids, sorted
+    n_blocks_hit: int        # accepted store blocks the probe matched
+    levels_walked: int
+    # sizes of the matched accepted blocks, sorted ascending; under
+    # ``include_probe`` these count the probe itself (size + 1)
+    block_sizes: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0,), np.int64))
+
+
+class DeltaBlocker:
+    """Runs the incremental iteration loop against one BlockStore, on the
+    store's device.
+
+    ``sort_backend`` accepts ``"auto"`` only: the port's pair engine picks
+    its dedupe sort from the data. A store that carries a mesh (the
+    sharded store and the routed ledger sync) is not ported yet;
+    ``routed_fallback_total`` stays 0.
+    """
+
+    def __init__(self, store: BlockStore, sort_backend: str = "auto"):
+        if sort_backend not in SORT_BACKENDS:
+            raise ValueError(f"sort_backend must be one of {SORT_BACKENDS}, "
+                             f"got {sort_backend!r}")
+        if getattr(store, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a store on a mesh (routed ledger sync) is not ported yet "
+                "(ROADMAP A7: sharding and distributed)")
+        self.store = store
+        self.cfg = store.cfg
+        self.device = store.device
+        self.sort_backend = sort_backend
+        self.routed_fallback_total = 0
+
+    def _up(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # ingest
+    # ------------------------------------------------------------------
+
+    def ingest_keys(self, keys, valid) -> IngestReport:
+        """Ingest a micro-batch given its top-level key matrix.
+
+        Args:
+          keys: (n, K) u64 keys from ``blocks.build_keys`` on the delta
+            records (an int64 tensor or a numpy uint64/int64 array; K must
+            match previous ingests).
+          valid: (n, K) bool.
+        Record ids ``store.num_records .. +n`` are assigned in order.
+        """
+        with record_function("stream.ingest"):
+            return self._ingest(host_u64(keys), _host_bool(valid))
+
+    def _ingest(self, key64: np.ndarray, valid: np.ndarray) -> IngestReport:
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        n = key64.shape[0]
+        rids = np.arange(self.store.num_records, self.store.num_records + n,
+                         dtype=np.int64)
+        self.store.num_records += n
+        key64[~valid] = SENTINEL_U64  # canonical sentinel padding
+        psize = np.full(valid.shape, INT32_MAX, np.int32)
+
+        r = (rids, key64, valid, psize)
+        dead = np.zeros((0,), np.int64)
+        add_k: List[np.ndarray] = []
+        add_r: List[np.ndarray] = []
+        ret_k: List[np.ndarray] = []
+        ret_r: List[np.ndarray] = []
+        reports: List[LevelReport] = []
+        for lev in range(cfg.max_iterations):
+            if len(r[0]) == 0 and len(dead) == 0:
+                break
+            width = r[1].shape[1] if len(r[0]) else None
+            if width == 0:
+                break
+            state = (self.store.level(lev, width) if width is not None
+                     else self.store.levels[lev])
+            if state is None:
+                break
+            with record_function("stream.level"):
+                r, dead, la_k, la_r, lr_k, lr_r, rep = self._process_level(
+                    lev, state, *r, dead)
+            add_k.append(la_k)
+            add_r.append(la_r)
+            ret_k.append(lr_k)
+            ret_r.append(lr_r)
+            reports.append(rep)
+
+        with record_function("stream.sync_pairs"):
+            added, retracted = self._sync_pairs(
+                np.concatenate(add_k) if add_k else np.zeros((0,), np.uint64),
+                np.concatenate(add_r) if add_r else np.zeros((0,), np.int64),
+                np.concatenate(ret_k) if ret_k else np.zeros((0,), np.uint64),
+                np.concatenate(ret_r) if ret_r else np.zeros((0,), np.int64))
+        # every output above is host numpy, so the device work is done
+        report = IngestReport(num_records=n, pairs_added=added,
+                              pairs_retracted=retracted, levels=reports,
+                              seconds=time.perf_counter() - t0)
+        logger.debug("[streaming] ingest n=%d pairs+%d pairs-%d %.3fs", n,
+                     len(added[0]), len(retracted[0]), report.seconds)
+        return report
+
+    # ------------------------------------------------------------------
+
+    def _process_level(self, lev: int, state: LevelState, r_rids, r_k64,
+                       r_valid, r_psize, dead_rids):
+        """Replace ``r_*`` rows' level state (all-invalid row == removal),
+        remove ``dead_rids`` rows, and propagate consequences level-wide.
+
+        Returns (next_repl 4-tuple, next_dead, adds_k, adds_r, rets_k,
+        rets_r, LevelReport).
+        """
+        cfg = self.cfg
+        depth = cfg.cms_depth
+        adds_k: List[np.ndarray] = []
+        adds_r: List[np.ndarray] = []
+        rets_k: List[np.ndarray] = []
+        rets_r: List[np.ndarray] = []
+        tab_dk: List[np.ndarray] = []
+        tab_dc: List[np.ndarray] = []
+        tab_df: List[np.ndarray] = []
+        changed_b = np.zeros((depth, cfg.cms.width), bool)
+
+        with record_function("stream.rows"):
+            # ---- fold replacement rows into (removals, additions) ----
+            any_valid = r_valid.any(axis=1)
+            pos, exists = state.row_index(r_rids)
+            noop = np.zeros(len(r_rids), bool)
+            if np.any(exists):
+                ex = np.flatnonzero(exists)
+                rows = pos[ex]
+                same = ((state.valid[rows] == r_valid[ex]).all(axis=1)
+                        & (state.key64[rows] == r_k64[ex]).all(axis=1)
+                        & (state.psize[rows] == r_psize[ex]).all(axis=1))
+                noop[ex[same]] = True
+            keepm = ~noop & (exists | any_valid)
+            r_rids, r_k64, r_valid, r_psize, any_valid = (
+                r_rids[keepm], r_k64[keepm], r_valid[keepm], r_psize[keepm],
+                any_valid[keepm])
+            pos, exists = state.row_index(r_rids)
+
+            # dead rows: replacement rows going fully invalid join explicit deads
+            dpos, dfound = state.row_index(dead_rids)
+            dead_here = dead_rids[dfound]
+            next_dead = [dead_here,
+                         r_rids[exists & ~any_valid]]  # stale deeper state
+
+            # ---- remove old versions (replaced + dead rows) ----
+            rm_rows = np.concatenate([pos[exists], dpos[dfound]])
+            n_replaced = len(rm_rows)
+            if len(rm_rows):
+                old_valid = state.valid[rm_rows]
+                rm_e_idx = state.idx[:, rm_rows][:, old_valid]
+                for j in range(depth):
+                    changed_b[j][rm_e_idx[j]] = True
+                if rm_e_idx.shape[1]:
+                    with record_function("stream.cms_fold"):
+                        state.cms_apply(rm_e_idx, -1)
+                old_keep = state.keep[rm_rows]
+                if old_keep.any():
+                    orid = np.broadcast_to(state.rids[rm_rows][:, None],
+                                           old_keep.shape)[old_keep]
+                    tab_dk.append(state.key64[rm_rows][old_keep])
+                    tab_dc.append(np.full(len(orid), -1, np.int64))
+                    tab_df.append(hashing.np_fingerprint_rid(orid))
+                old_acc = state.accept[rm_rows]
+                if old_acc.any():
+                    rets_k.append(state.key64[rm_rows][old_acc])
+                    rets_r.append(np.broadcast_to(
+                        state.rids[rm_rows][:, None], old_acc.shape)[old_acc])
+                state.drop_rows(rm_rows)
+
+            # ---- add new versions (rows with at least one valid key) ----
+            nv = np.flatnonzero(any_valid)
+            if len(nv):
+                idx = sketches.np_cms_indices(cfg.cms, r_k64[nv])
+                v = r_valid[nv]
+                for j in range(depth):
+                    changed_b[j][idx[j][v]] = True
+                add_e_idx = idx[:, v]
+                if add_e_idx.shape[1]:
+                    with record_function("stream.cms_fold"):
+                        state.cms_apply(add_e_idx, 1)
+                state.append_rows(r_rids[nv], r_k64[nv], v, r_psize[nv], idx)
+
+        # ---- re-estimate entries hashing into a touched bucket ----
+        with record_function("stream.reclassify"):
+            aff = np.zeros(state.valid.shape, bool)
+            for j in range(depth):
+                np.logical_or(aff, changed_b[j][state.idx[j]], out=aff)
+            aff &= state.valid
+            rpos, rfound = state.row_index(r_rids[nv] if len(nv) else r_rids[:0])
+            live_repl_rows = rpos[rfound]
+            if len(live_repl_rows):
+                aff[live_repl_rows] |= state.valid[live_repl_rows]
+            n_aff = int(aff.sum())
+            if n_aff:
+                cg = state.cms_lookup(state.idx[:, aff])
+                est = cg.min(axis=0)
+                right_t, keep_t, _ = hdb_mod.rough_classify(
+                    cfg, self._up(est),
+                    torch.ones(n_aff, dtype=torch.bool, device=self.device),
+                    self._up(state.psize[aff]))
+                right = right_t.cpu().numpy()
+                keepb = keep_t.cpu().numpy()
+                old_keep = state.keep[aff]
+                erid = np.broadcast_to(
+                    state.rids[:, None], state.valid.shape)[aff]
+                ekey = state.key64[aff]
+                for sel, sign in ((keepb & ~old_keep, 1), (~keepb & old_keep, -1)):
+                    if sel.any():
+                        tab_dk.append(ekey[sel])
+                        tab_dc.append(np.full(int(sel.sum()), sign, np.int64))
+                        tab_df.append(hashing.np_fingerprint_rid(erid[sel]))
+                state.right[aff] = right
+                state.keep[aff] = keepb
+
+        # ---- key table update (exact counts + XOR fingerprints) ----
+        with record_function("stream.keytab"):
+            changed_keys = np.zeros((0,), np.uint64)
+            if tab_dk:
+                dk, dc, df = reduce_by_key(np.concatenate(tab_dk),
+                                           np.concatenate(tab_dc),
+                                           np.concatenate(tab_df))
+                nz = (dc != 0) | (df != 0)
+                changed_keys = dk[nz]
+                state.update_keytab(dk[nz], dc[nz], df[nz])
+
+        # ---- duplicate-block dedupe over the over-sized table slice ----
+        with record_function("stream.survivors"):
+            o_key, o_cnt, o_fp = state.oversized(cfg.max_block_size)
+            surv_flags = np.zeros(len(o_key), bool)
+            if len(o_key):
+                _, _, surv = hdb_mod.dedupe_oversized_reps(
+                    u64.from_numpy_u64(o_fp, self.device),
+                    self._up(o_cnt.astype(np.int32)),
+                    u64.from_numpy_u64(o_key, self.device))
+                surv_flags = surv.cpu().numpy()
+            # runs even with no over-keys: stale flags from the previous
+            # ingest must clear
+            sv_changed = state.set_survivors(o_key, surv_flags)
+            if len(sv_changed):
+                changed_keys = np.union1d(changed_keys, sv_changed)
+
+        # ---- refresh accept/survive where a decision input changed ----
+        with record_function("stream.keytab"):
+            refresh = aff
+            if len(changed_keys):
+                _, touched = searchsorted_mask(changed_keys,
+                                               state.key64.reshape(-1))
+                refresh = refresh | (touched.reshape(state.key64.shape)
+                                     & state.valid)
+            dirty_rows = np.zeros(state.num_rows, bool)
+            if refresh.any():
+                ekey = state.key64[refresh]
+                cnt, surv, _ = state.lookup(ekey)
+                kb = state.keep[refresh]
+                sz = np.where(kb, cnt, 0).astype(np.int32)
+                new_accept = state.right[refresh] | (
+                    kb & (cnt <= cfg.max_block_size))
+                new_survive = kb & (cnt > cfg.max_block_size) & surv
+                old_accept = state.accept[refresh]
+                old_survive = state.survive[refresh]
+                old_size = state.size[refresh]
+                erid = np.broadcast_to(
+                    state.rids[:, None], state.valid.shape)[refresh]
+                on = new_accept & ~old_accept
+                off = ~new_accept & old_accept
+                if on.any():
+                    adds_k.append(ekey[on])
+                    adds_r.append(erid[on])
+                if off.any():
+                    rets_k.append(ekey[off])
+                    rets_r.append(erid[off])
+                state.accept[refresh] = new_accept
+                state.survive[refresh] = new_survive
+                state.size[refresh] = sz
+                entry_dirty = ((new_survive != old_survive)
+                               | (new_survive & (sz != old_size)))
+                if entry_dirty.any():
+                    dirty_rows[np.nonzero(refresh)[0][entry_dirty]] = True
+            dirty_rows[live_repl_rows] = True
+
+        # ---- re-intersect dirty rows ----
+        with record_function("stream.intersect"):
+            dirty = np.flatnonzero(dirty_rows)
+            ko = min(cfg.max_oversize_keys, state.width)
+            out_w = ko * (ko - 1) // 2
+            if len(dirty) == 0 or out_w == 0:
+                if out_w == 0:
+                    next_dead.append(state.rids[dirty])
+                w = max(out_w, 1)
+                next_repl = (np.zeros((0,), np.int64),
+                             np.zeros((0, w), np.uint64),
+                             np.zeros((0, w), bool),
+                             np.zeros((0, w), np.int32))
+            else:
+                nkey, nvalid, npsize, _ = hdb_mod.intersect_keys(
+                    cfg, u64.from_numpy_u64(state.key64[dirty], self.device),
+                    self._up(state.survive[dirty]), self._up(state.size[dirty]))
+                next_repl = (state.rids[dirty], u64.to_numpy_u64(nkey),
+                             nvalid.cpu().numpy(),
+                             npsize.cpu().numpy().astype(np.int32))
+
+        rep = LevelReport(level=lev, n_replaced=n_replaced,
+                          n_reclassified=n_aff,
+                          n_changed_keys=len(changed_keys),
+                          n_dirty_rows=len(dirty))
+
+        def cat(parts, dtype):
+            return (np.concatenate(parts) if parts
+                    else np.zeros((0,), dtype))
+
+        return (next_repl, np.concatenate(next_dead),
+                cat(adds_k, np.uint64), cat(adds_r, np.int64),
+                cat(rets_k, np.uint64), cat(rets_r, np.int64), rep)
+
+    # ------------------------------------------------------------------
+    # pair reconciliation
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _cancel_common(add_k, add_r, ret_k, ret_r):
+        """Drop (key, rid) assignments present in both lists (a replaced
+        row re-accepting the same key is a net no-op)."""
+        if len(add_k) == 0 or len(ret_k) == 0:
+            return add_k, add_r, ret_k, ret_r
+        allk = np.concatenate([add_k, ret_k])
+        allr = np.concatenate([add_r, ret_r])
+        src = np.concatenate([np.zeros(len(add_k), np.int8),
+                              np.ones(len(ret_k), np.int8)])
+        order = np.lexsort((src, allr, allk))
+        allk, allr, src = allk[order], allr[order], src[order]
+        match = np.zeros(len(allk), bool)
+        nxt = ((allk[1:] == allk[:-1]) & (allr[1:] == allr[:-1])
+               & (src[1:] != src[:-1]))
+        match[:-1] |= nxt
+        match[1:] |= nxt
+        keep = ~match
+        is_add = src == 0
+        return (allk[keep & is_add], allr[keep & is_add],
+                allk[keep & ~is_add], allr[keep & ~is_add])
+
+    @staticmethod
+    def _nontrivial(blk: pairs_mod.Blocks) -> pairs_mod.Blocks:
+        """Restrict a CSR slice to blocks that can produce pairs."""
+        keep = blk.size >= 2
+        members = gather_segments(blk.start[keep], blk.size[keep],
+                                  blk.members)
+        return pairs_mod.Blocks(
+            blk.key_hi[keep], blk.key_lo[keep],
+            np.concatenate([[0], np.cumsum(blk.size[keep])])[:-1]
+            .astype(np.int64),
+            blk.size[keep], members)
+
+    def _dedupe_blocks(self, blk: pairs_mod.Blocks,
+                       budget: int) -> pairs_mod.PairSet:
+        """One exact pair dedupe on the store's device."""
+        return pairs_mod.dedupe_pairs(blk, budget=budget, backend="auto",
+                                      device=self.device)
+
+    def _sync_pairs(self, add_k, add_r, ret_k, ret_r):
+        """Apply assignment deltas; return ((a, b, src) added, (a, b)
+        retracted) ledger changes, keeping the ledger equal to an exact
+        batch ``dedupe_pairs`` of the current accepted blocks.
+
+        A pair's entry can need *downward* revision (smaller src, or
+        retraction) only if it had a source among the *shrink* keys (keys
+        that lost a member this ingest). Every other affected pair's
+        sources only grew, so ``max(current, new affected src)`` is exact;
+        the join runs only over the shrink keys' old pairs.
+        """
+        empty = ((np.zeros((0,), np.int64),) * 3,
+                 (np.zeros((0,), np.int64),) * 2)
+        add_k, add_r, ret_k, ret_r = self._cancel_common(
+            add_k, add_r, ret_k, ret_r)
+        if len(add_k) == 0 and len(ret_k) == 0:
+            return empty
+        shrink = np.unique(ret_k)
+        with record_function("stream.splice"):
+            affected, shrink_old_csr, new_csr = self.store.apply_assignment_deltas(
+                add_k, add_r, ret_k, ret_r, snapshot_keys=shrink)
+
+        def pair_set(csr):
+            blk = self._nontrivial(csr)
+            if blk.num_blocks == 0:
+                return (np.zeros((0,), np.uint64), np.zeros((0,), np.int64))
+            ps = self._dedupe_blocks(blk, blk.num_pair_slots + 1)
+            return pack_pair(ps.a, ps.b), ps.src_size
+
+        join_pack, _ = pair_set(shrink_old_csr)   # may have LOST a source
+        new_pack, new_src = pair_set(new_csr)     # all affected, post-splice
+        with record_function("stream.ledger"):
+            # growth branch: sources only grew -> max with the current entry
+            _, in_join = searchsorted_mask(join_pack, new_pack)
+            grow_pack = new_pack[~in_join]
+            grow_aff = new_src[~in_join]
+            cur, lfound = self.store.ledger_src(grow_pack)
+            grow_src = np.maximum(cur, grow_aff)
+            touch = ~lfound | (grow_src != cur)       # skip no-op upserts
+        # join branch: full recompute (affected part + unaffected coverage)
+        if len(join_pack):
+            with record_function("stream.join"):
+                aff_src = np.zeros(len(join_pack), np.int64)
+                if len(new_pack):
+                    jpos, jhit = searchsorted_mask(new_pack, join_pack)
+                    aff_src[jhit] = new_src[np.minimum(
+                        jpos, len(new_pack) - 1)][jhit]
+                unaff = self._unaffected_src(join_pack, affected)
+                join_src = np.maximum(aff_src, unaff)
+        else:
+            join_src = np.zeros((0,), np.int64)
+        pairs_all = np.concatenate([grow_pack[touch], join_pack])
+        src_all = np.concatenate([grow_src[touch], join_src])
+        if len(pairs_all) == 0:
+            return empty
+        with record_function("stream.ledger"):
+            added_pack, added_src, retr_pack = self.store.apply_pair_deltas(
+                pairs_all, src_all)
+        aa, ab = unpack_pair(added_pack)
+        ra, rb = unpack_pair(retr_pack)
+        return (aa, ab, added_src), (ra, rb)
+
+    def _unaffected_src(self, pair_pack: np.ndarray,
+                        affected: np.ndarray) -> np.ndarray:
+        """Per pair: largest accepted block containing both endpoints whose
+        key is NOT in ``affected`` (0 if none). Exact join through the
+        cached per-level accept bits; the key-list join runs on the
+        device."""
+        store = self.store
+        a, b = unpack_pair(pair_pack)
+        recs = np.unique(np.concatenate([a, b]))
+        ks: List[np.ndarray] = []
+        rs: List[np.ndarray] = []
+        for state in store.levels:
+            if state is None or state.num_rows == 0:
+                continue
+            rpos, rfound = state.row_index(recs)
+            rows = rpos[rfound]
+            if len(rows) == 0:
+                continue
+            acc = state.accept[rows]
+            if not acc.any():
+                continue
+            ks.append(state.key64[rows][acc])
+            rs.append(np.broadcast_to(
+                state.rids[rows][:, None], acc.shape)[acc])
+        if not ks:
+            return np.zeros(len(pair_pack), np.int64)
+        key = np.concatenate(ks)
+        rid = np.concatenate(rs)
+        _, isaff = searchsorted_mask(affected, key)
+        key, rid = key[~isaff], rid[~isaff]
+        if len(key) == 0:
+            return np.zeros(len(pair_pack), np.int64)
+        size = store.block_size_of(key)
+        # dense padded (record -> key list) matrix; sentinel lanes carry
+        # size 0, so they never win the shared max
+        uidx = np.searchsorted(recs, rid)
+        counts = np.bincount(uidx, minlength=len(recs))
+        order = np.argsort(uidx, kind="stable")
+        u_s, k_s, s_s = uidx[order], key[order], size[order]
+        starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        col = np.arange(len(u_s)) - starts[u_s]
+        kmat = np.full((len(recs), int(counts.max())), SENTINEL_U64)
+        smat = np.zeros((len(recs), int(counts.max())), np.int32)
+        kmat[u_s, col] = k_s
+        smat[u_s, col] = s_s
+        kmat_t = u64.from_numpy_u64(kmat, self.device)
+        smat_t = self._up(smat)
+        ra = self._up(np.searchsorted(recs, a))
+        rb = self._up(np.searchsorted(recs, b))
+        out = [_shared_max_src(kmat_t[ra[off:off + _JOIN_CHUNK]],
+                               smat_t[ra[off:off + _JOIN_CHUNK]],
+                               kmat_t[rb[off:off + _JOIN_CHUNK]])
+               for off in range(0, len(pair_pack), _JOIN_CHUNK)]
+        return torch.cat(out).cpu().numpy().astype(np.int64)
+
+    # ------------------------------------------------------------------
+    # query
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _probe_self_survivors(k64, valid, cnt_adj, fp, max_block_size):
+        """Survivor mask of each probe row's post-probe over-sized keys.
+
+        With the probe counted in, a held block's fingerprint becomes
+        ``fp ^ probe_fp`` and its size ``cnt + 1``: a uniform shift, so the
+        only duplicate groups left among one row's held keys are those
+        sharing the original (fp, cnt). The smallest key of each group
+        survives, as in ``hdb.dedupe_oversized_reps``.
+        """
+        surv = np.zeros(valid.shape, bool)
+        q, k = valid.shape
+        flat = np.flatnonzero(((cnt_adj > max_block_size) & valid).reshape(-1))
+        if len(flat) == 0:
+            return surv
+        row = flat // k
+        fpv = fp.reshape(-1)[flat]
+        cntv = cnt_adj.reshape(-1)[flat]
+        keyv = k64.reshape(-1)[flat]
+        order = np.lexsort((keyv, cntv, fpv, row))
+        r_s, f_s, c_s = row[order], fpv[order], cntv[order]
+        first = np.concatenate([[True], (r_s[1:] != r_s[:-1])
+                                | (f_s[1:] != f_s[:-1])
+                                | (c_s[1:] != c_s[:-1])])
+        surv.reshape(-1)[flat[order[first]]] = True
+        return surv
+
+    def query_keys(self, keys, valid, include_probe: bool = False,
+                   n_real: Optional[int] = None) -> List[QueryResult]:
+        """Candidate ids per probe record (serving-style, read-only).
+
+        Walks the store's levels with the probe's key matrix: accepted
+        probe keys contribute the matching stored block's members; keys
+        on surviving over-sized blocks are pairwise-intersected and the
+        walk descends. A query never mutates the store.
+
+        Only the first ``n_real`` rows get a ``QueryResult`` (the rest are
+        a caller's padding); every decision is row-local, so a row's
+        result does not depend on its batch mates.
+
+        ``include_probe=True`` replays the walk as if the probe had been
+        ingested (each probe alone): CMS estimates gain the probe's own
+        per-bucket contribution, exact counts gain +1 on held keys,
+        survivorship is re-derived for the post-probe fingerprints, and
+        the descent's ``psize`` carries the adjusted sizes. That matches
+        ingesting the probe unless the probe tips an unrelated store block
+        across ``max_block_size``.
+        """
+        with record_function("stream.query"):
+            return self._query(host_u64(keys), _host_bool(valid),
+                               include_probe, n_real)
+
+    def _query(self, k64: np.ndarray, valid: np.ndarray, include_probe: bool,
+               n_real: Optional[int]) -> List[QueryResult]:
+        cfg = self.cfg
+        q = k64.shape[0]
+        k64[~valid] = SENTINEL_U64
+        psize = np.full(valid.shape, INT32_MAX, np.int32)
+        cand_probe: List[np.ndarray] = []
+        cand_rid: List[np.ndarray] = []
+        size_probe: List[np.ndarray] = []
+        size_val: List[np.ndarray] = []
+        hits = np.zeros(q, np.int64)
+        # a row stops walking when ITS keys die, independent of batch mates
+        levels_walked = np.zeros(q, np.int64)
+        for lev in range(cfg.max_iterations):
+            state = self.store.levels[lev]
+            if state is None or state.num_rows == 0 or k64.shape[1] == 0:
+                break
+            if not valid.any():
+                break
+            levels_walked += valid.any(axis=1)
+            idx = sketches.np_cms_indices(cfg.cms, k64)
+            cnts = state.cms_lookup(idx)
+            est = None
+            for j in range(cfg.cms_depth):
+                e = cnts[j].astype(np.int64)
+                if include_probe:
+                    # the probe's own fold-in: +1 per probe entry landing
+                    # in the bucket (exact, incl. self-collisions)
+                    same = ((idx[j][:, :, None] == idx[j][:, None, :])
+                            & valid[:, None, :])
+                    e = e + same.sum(axis=2)
+                est = e if est is None else np.minimum(est, e)
+            right_t, keep_t, _ = hdb_mod.rough_classify(
+                cfg, self._up(est.astype(np.int32)), self._up(valid),
+                self._up(psize))
+            right = right_t.cpu().numpy()
+            keepb = keep_t.cpu().numpy()
+            cnt, surv, _ = state.lookup(k64)
+            if include_probe:
+                cnt = cnt + valid.astype(cnt.dtype)
+                surv = self._probe_self_survivors(
+                    k64, valid, cnt, state.lookup_fp(k64),
+                    cfg.max_block_size)
+            accept = right | (keepb & (cnt <= cfg.max_block_size))
+            survive = keepb & (cnt > cfg.max_block_size) & surv
+            size = np.where(keepb, cnt, 0).astype(np.int32)
+            # members (and sizes) of matching accepted blocks; the size
+            # comes from the CSR, +1 when the probe counts
+            hit_keys = k64[accept]
+            if len(hit_keys):
+                probe_of = np.broadcast_to(
+                    np.arange(q)[:, None], accept.shape)[accept]
+                members = self.store.members_of(hit_keys)
+                for pi, mem in zip(probe_of, members):
+                    if len(mem):
+                        hits[pi] += 1
+                        cand_probe.append(np.full(len(mem), pi))
+                        cand_rid.append(mem)
+                        size_probe.append(np.asarray([pi]))
+                        size_val.append(np.asarray(
+                            [len(mem) + int(include_probe)], np.int64))
+            if not survive.any():
+                break
+            ko = min(cfg.max_oversize_keys, k64.shape[1])
+            if ko < 2:
+                break
+            nkey, nvalid, npsize, _ = hdb_mod.intersect_keys(
+                cfg, u64.from_numpy_u64(k64, self.device), self._up(survive),
+                self._up(size))
+            k64 = u64.to_numpy_u64(nkey)
+            valid = nvalid.cpu().numpy()
+            psize = npsize.cpu().numpy().astype(np.int32)
+        if cand_probe:
+            cp = np.concatenate(cand_probe)
+            cr = np.concatenate(cand_rid)
+            sp = np.concatenate(size_probe)
+            sv = np.concatenate(size_val)
+        else:
+            cp = np.zeros((0,), np.int64)
+            cr = np.zeros((0,), np.int64)
+            sp = np.zeros((0,), np.int64)
+            sv = np.zeros((0,), np.int64)
+        out = []
+        for pi in range(q if n_real is None else min(n_real, q)):
+            out.append(QueryResult(
+                candidates=np.unique(cr[cp == pi]),
+                n_blocks_hit=int(hits[pi]),
+                levels_walked=int(levels_walked[pi]),
+                block_sizes=np.sort(sv[sp == pi])))
+        return out

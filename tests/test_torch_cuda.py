@@ -307,3 +307,39 @@ def test_cms_kernel_iteration_one_layout(dev):
     pick = rng.integers(0, 50_000, records * slots)
     idx = np.ascontiguousarray(pool[:, pick].astype(np.int32))
     _cms_check(cms, torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev), width)
+
+
+def test_streaming_smoke_cuda_equals_cpu(dev):
+    from repro_torch.streaming import smoke
+    gpu, cpu = smoke.smoke_run(dev), smoke.smoke_run("cpu")
+    assert smoke.differing(gpu, cpu) == []
+    assert gpu["extend auto"][-1][1] > 0 and len(gpu["ledger"][0]) > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 100_000])
+def test_level_cms_apply_through_kernel(dev, n):
+    """The store's sketch fold on the card: the cms kernel builds the
+    delta's sketch; +1 then -1 twice equals np.add.at, never negative."""
+    from repro_torch.core import sketches
+    from repro_torch.kernels.cms import cms
+    from repro_torch.streaming.store import LevelKeys
+    cfg = sketches.CMSConfig(4, 1 << 18)
+    rng = np.random.default_rng(n)
+    base = sketches.np_cms_indices(cfg, rng.integers(0, 5000, 200_000, dtype=np.uint64))
+    lk = LevelKeys.empty(cfg, dev)
+    lk.cms_apply(base, 1)
+    want = np.zeros((cfg.depth, cfg.width), np.int32)
+    for j in range(cfg.depth):
+        np.add.at(want[j], base[j], 1)
+    delta = base[:, rng.permutation(base.shape[1])[:n]]
+    for sign in (1, -1, -1):
+        before = cms.KERNEL.launches
+        lk.cms_apply(delta, sign)
+        assert cms.KERNEL.launches == before + (1 if n else 0)
+        for j in range(cfg.depth):
+            np.add.at(want[j], delta[j], sign)
+        got = lk.cms.cpu().numpy()
+        assert np.array_equal(got, want)
+        assert got.min() >= 0
+    assert np.array_equal(lk.cms_lookup(base[:, :64]),
+                          np.stack([want[j][base[j, :64]] for j in range(cfg.depth)]))
