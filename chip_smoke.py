@@ -51,14 +51,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       the deltas are replayed on a twin pipeline with every launch held
       against its plain version as it happens (same counts, same last
       report); and the last report must equal dedup_corpus on the same
-      rows with an exact pair budget.
+      rows with an exact pair budget;
+   d. the sharded store: the smoke config in 3 parts through
+      StreamingEngine(n_shards=n) for n in 1, 4, 8 on cuda, every launch
+      held against its plain version, equal to the n_shards=1 (BlockStore)
+      run and to the cpu run (every ingest report, the ledger, the
+      candidate pairs, matched pairs, probes); STREAM100K's base and two
+      deltas through ShardedBlockStore(n_shards=4) on cuda (the last delta
+      timed, launch counts zeroed just before and read just after), equal
+      to phase 5b's single store;
+6. table2: paper Table 2 as benchmarks/bench_table2.py runs it
+   (max_block_size 200, the default MetaBlockingConfig, the corpus's
+   labelled pairs): THR, PMB and HDB through metrics.evaluate, each
+   method's blocking timed with the card synchronised on both sides. SYN10K
+   (4,000 entities, seed 1) on cuda, again on cuda with every launch held
+   against its plain version, and on cpu: the metrics must be equal field
+   for field. SYN1M (phase 3's corpus and keys) on cuda, launch counts
+   zeroed just before and read just after; a PMB over its edge budget is
+   recorded as the bench records it.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` from the SYN1M HDB run; ``stream100k_delta_launches`` and
-``syn_stream_launches`` from phase 5); the last line is
+(``launches`` from the SYN1M HDB run; ``stream100k_delta_launches``,
+``syn_stream_launches`` and ``sharded_delta_launches`` from phase 5,
+``table2_syn1m_launches`` from phase 6); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -692,7 +711,8 @@ def counted_run(tag, run, kernels):
 def full_size(kernels):
     """The SYN1M main path: the counted HDB run, the recorded run, the
     counted threshold run, the naive pair count and the profiled run.
-    Returns (HDB launch counts, recorded launches)."""
+    Returns (HDB launch counts, recorded launches, SYN1M's corpus and keys
+    moved to the host)."""
     from repro_torch.core import baselines, blocks, hdb
     from repro_torch.data import pipeline, synthetic
     t0 = time.perf_counter()
@@ -721,9 +741,19 @@ def full_size(kernels):
     keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
     print(f"SYN1M: naive_pair_count={baselines.naive_pair_count(keys, valid)} "
           f"over {int(valid.sum())} top-level keys", flush=True)
-    del keys, valid
     profile_breakdown(run)
-    return launches, calls
+    return launches, calls, moved(corpus, keys, valid, "cpu")
+
+
+def moved(corpus, keys, valid, device):
+    """A corpus and its keys on ``device``: SYN1M waits on the host from
+    phase 3 to phase 6, so the streaming phases' peak memory is theirs."""
+    from repro_torch.core.blocks import TokenColumn
+    from repro_torch.data import synthetic
+    cols = {name: TokenColumn(c.tokens.to(device), c.mask.to(device))
+            for name, c in corpus.columns.items()}
+    return (synthetic.Corpus(cols, corpus.blocking, corpus.entity_id, corpus.num_records),
+            keys.to(device), valid.to(device))
 
 
 def synced(fn):
@@ -771,7 +801,10 @@ def stream100k(kernels):
     the store against the batch port on the same rows (the full re-block,
     timed); the timed delta again on a store built the same way with every
     launch held against its plain version as it happens; a third delta of
-    the same layout, profiled. Returns the timed delta's launch counts."""
+    the same layout, profiled. Returns the timed delta's launch counts and,
+    for phase 5d, (keys and valid moved to the host, so the SYN stream's
+    peak memory is its own; parts, cfg, candidate pairs and accepted
+    blocks as they stood after the timed delta)."""
     from repro_torch.core import hdb, pairs
     from repro_torch.streaming import BlockStore, DeltaBlocker
     cfg = hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 18)
@@ -838,7 +871,7 @@ def stream100k(kernels):
           f"every launch bit-identical to its plain version: {checked}", flush=True)
     k3, v3 = stream_keys(1, d, total)
     profile_breakdown(lambda: blk.ingest_keys(k3, v3), tag="STREAM100K delta")
-    return launches
+    return launches, (keys.cpu(), valid.cpu(), parts, cfg, got, got_blk)
 
 
 def syn_stream(kernels, entities=SYN_STREAM_ENTITIES):
@@ -919,6 +952,153 @@ def syn_stream(kernels, entities=SYN_STREAM_ENTITIES):
     return launches
 
 
+def sharded_store(kernels, stream_ref):
+    """Phase 5d: the sharded store. The smoke config through
+    StreamingEngine(n_shards=n), n in 1, 4, 8, with every launch held
+    against its plain version, against the single store and the cpu run;
+    then STREAM100K's parts through ShardedBlockStore(n_shards=4), the last
+    delta timed and counted, against phase 5b's single store. Returns the
+    timed delta's launch counts."""
+    from repro_torch.streaming import DeltaBlocker, ShardedBlockStore, smoke
+    t_phase = time.perf_counter()
+    single = smoke.sharded_run("cuda", 1)
+    for n in (1, 4, 8):
+        out = []
+        checked = check_launches(lambda: out.append(smoke.sharded_run("cuda", n)),
+                                 kernels)
+        (gpu,) = out
+        differ = smoke.differing(gpu, single) + smoke.differing(gpu, smoke.sharded_run("cpu", n))
+        if differ:
+            raise AssertionError(f"sharded smoke n_shards={n}: {differ} differ from the "
+                                 "single store or the cpu run")
+        print(f"sharded smoke n_shards={n}: {len(gpu['reports'])} ingests, "
+              f"{len(gpu['ledger'][0])} ledger pairs, {len(gpu['probes'])} probes, equal "
+              f"to the single store and the cpu run (reports, ledger, candidate pairs, "
+              f"matched pairs, probes); every launch bit-identical to its plain "
+              f"version: {checked}", flush=True)
+    keys, valid, parts, cfg, want, want_blk = stream_ref
+    keys, valid = keys.cuda(), valid.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    blk = DeltaBlocker(ShardedBlockStore(cfg, n_shards=4, device="cuda"))
+    (base_s, warm_s) = [synced(lambda: blk.ingest_keys(keys[p], valid[p]))[1]
+                        for p in parts[:2]]
+    for k in kernels:
+        k.launches = 0
+    rep, delta_s = synced(lambda: blk.ingest_keys(keys[parts[2]], valid[parts[2]]))
+    launches = {k.name: k.launches for k in kernels}
+    store = blk.store
+    got, got_blk = store.candidate_pairs(), store.accepted_blocks(min_size=1)
+    for f in ("a", "b", "src_size"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"STREAM100K sharded: candidate pairs {f} differ "
+                                 "from the single store")
+    for f in ("key_hi", "key_lo", "start", "size", "members"):
+        if not np.array_equal(getattr(got_blk, f), getattr(want_blk, f)):
+            raise AssertionError(f"STREAM100K sharded: accepted blocks {f} differ "
+                                 "from the single store")
+    ms = store.memory_stats()
+    shard_bytes = [sh.total_bytes for sh in store.shards]
+    print(f"STREAM100K sharded (n_shards=4): base_build_s={base_s:.4f} warm_delta_s="
+          f"{warm_s:.4f} delta_ingest_s={delta_s:.4f} pairs_added={rep.num_pairs_added} "
+          f"ledger_pairs={ms['ledger_pairs']} shard_skew={ms['shard_skew']:.6f} "
+          f"shard_total_bytes={shard_bytes} memory_stats_bytes="
+          f"{ {k: v for k, v in ms.items() if k.endswith('_bytes')} } "
+          f"exchange_total={store.router.exchange_total} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"launches={launches}; ledger, candidate pairs and accepted blocks equal "
+          f"phase 5b's single store", flush=True)
+    print(f"phase 5d: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
+# benchmarks/bench_table2.py's threshold and HDB max_block_size
+TABLE2_MAX_BLOCK = 200
+
+
+def table2_methods(corpus, keys, valid, device):
+    """THR, PMB and HDB as benchmarks/bench_table2.py runs them: each
+    method's blocking timed (the card synchronised on both sides), then
+    metrics.evaluate against the corpus's labelled pairs. Returns
+    {method: (BlockingMetrics, or the MetaBlockingBudgetError of a PMB over
+    its edge budget; seconds)} and PMB's tri-decode launches."""
+    from repro_torch.core import baselines, hdb, metablocking
+    from repro_torch.data import metrics
+    from repro_torch.kernels.pairs import tri as td
+    labeled = corpus.labeled_pairs()
+
+    def evaluated(block):
+        res, secs = synced(block)
+        return metrics.evaluate(res, corpus, labeled, device=device), secs
+
+    out = {"THR": evaluated(lambda: baselines.threshold_blocking(
+        keys, valid, TABLE2_MAX_BLOCK, device=device))}
+    before = td.KERNEL.launches
+    try:
+        out["PMB"] = evaluated(lambda: metablocking.meta_blocking_result(
+            keys, valid, device=device))
+    except metablocking.MetaBlockingBudgetError as e:
+        out["PMB"] = (e, None)
+    pmb_tri = td.KERNEL.launches - before
+    out["HDB"] = evaluated(lambda: hdb.hashed_dynamic_blocking(
+        keys, valid, hdb.HDBConfig(max_block_size=TABLE2_MAX_BLOCK), device=device))
+    return out, pmb_tri
+
+
+def print_table2(dataset, rows, pmb_tri):
+    for method, (m, secs) in rows.items():
+        if isinstance(m, Exception):
+            print(f"# PMB failed on {dataset}: {m} (mirrors paper section 5.3)", flush=True)
+            print(f"table2,{dataset},{method},nan,nan,0,nan", flush=True)
+        else:
+            print(f"table2,{dataset},{method},{m.pq!r},{m.pc!r},{m.distinct_pairs},"
+                  f"{secs!r}", flush=True)
+            print(f"table2 {dataset} {method} metrics: {dataclasses.asdict(m)}", flush=True)
+    print(f"table2 {dataset}: enumerate_pairs tri-decode launches (PMB stage 3) = "
+          f"{pmb_tri}", flush=True)
+
+
+def same_metrics(a, b):
+    return all(type(a[k][0]) is type(b[k][0]) and (
+        str(a[k][0]) == str(b[k][0]) if isinstance(a[k][0], Exception)
+        else dataclasses.asdict(a[k][0]) == dataclasses.asdict(b[k][0])) for k in a)
+
+
+def table2(kernels, syn1m):
+    """Phase 6: paper Table 2 on SYN10K (cuda timed, cuda checked, cpu;
+    equal metrics) and on SYN1M (cuda, counted). Returns SYN1M's launch
+    counts."""
+    from repro_torch.core import blocks
+    from repro_torch.data import synthetic
+    t_phase = time.perf_counter()
+    spec = synthetic.SyntheticSpec(num_entities=4_000, seed=1)   # benchmarks/common.py:45
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        corpus = synthetic.generate(spec, device=dev)
+        keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
+        runs[dev] = table2_methods(corpus, keys, valid, dev)
+        if dev == "cuda":
+            print_table2("SYN10K", *runs[dev])
+            out = []
+            checked = check_launches(
+                lambda: out.append(table2_methods(corpus, keys, valid, dev)), kernels)
+            if not same_metrics(out[0][0], runs[dev][0]):
+                raise AssertionError("table2 SYN10K: the checked cuda run's metrics differ")
+    if not same_metrics(runs["cuda"][0], runs["cpu"][0]):
+        raise AssertionError("table2 SYN10K: metrics differ cuda vs cpu")
+    print(f"table2 SYN10K: BlockingMetrics of THR, PMB and HDB equal on cuda and cpu; "
+          f"the cuda run again with every launch bit-identical to its plain version: "
+          f"{checked}", flush=True)
+    corpus, keys, valid = moved(*syn1m, "cuda")
+    for k in kernels:
+        k.launches = 0
+    rows, pmb_tri = table2_methods(corpus, keys, valid, "cuda")
+    launches = {k.name: k.launches for k in kernels}
+    print_table2("SYN1M", rows, pmb_tri)
+    print(f"table2 SYN1M: records={corpus.num_records} launches={launches}", flush=True)
+    print(f"phase 6: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -944,7 +1124,7 @@ def main() -> int:
     smoke_pipeline()
     kernels = [td.KERNEL, radix.PASS_KERNEL, radix.COUNTS_KERNEL, mk.KERNEL,
                hash64.MIX_KERNEL, hash64.COMBINE_KERNEL, minhash.KERNEL, cms.KERNEL]
-    launches, calls = full_size(kernels)
+    launches, calls, syn1m = full_size(kernels)
     checks = {"tri_decode": check_tri_decode, "radix_sort": check_radix,
               "radix_digit_counts": check_digit_counts,
               "match": check_match, "mix64": check_mix64,
@@ -957,13 +1137,20 @@ def main() -> int:
     del calls
 
     stream_smoke()
-    stream_launches = stream100k(kernels)
+    stream_launches, stream_ref = stream100k(kernels)
     torch.cuda.empty_cache()
     syn_launches = syn_stream(kernels)
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_store(kernels, stream_ref)
+    del stream_ref
+    torch.cuda.empty_cache()
+    table2_launches = table2(kernels, syn1m)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["stream100k_delta_launches"] = stream_launches[row["name"]]
         row["syn_stream_launches"] = syn_launches[row["name"]]
+        row["sharded_delta_launches"] = sharded_launches[row["name"]]
+        row["table2_syn1m_launches"] = table2_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..kernels.minhash import ops as minhash_ops
 from ..kernels.minhash.minhash import MH_SEED as _MH_SEED
 from . import hashing, u64
@@ -57,3 +58,27 @@ def lsh_keys(tokens: torch.Tensor, mask: torch.Tensor, bands: int,
     keys = band_keys(mh, bands, rows_per_band, column_seed)
     valid = mask.any(dim=1, keepdim=True).expand(keys.shape)
     return keys, valid
+
+
+def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x ** n`` for an int ``n >= 0`` by binary exponentiation: the
+    float32 products, in order, of XLA's ``integer_pow``."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return torch.ones_like(x) if acc is None else acc
+
+
+def lsh_probability(bands: int, rows_per_band: int, jaccard,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Analytic LSH(b, w, j) = 1 - (1 - j^w)^b (paper Fig. 1a), float32,
+    bit-equal to the reference; on ``jaccard``'s device if it is a
+    tensor, else on ``device``."""
+    if not isinstance(jaccard, torch.Tensor):
+        jaccard = torch.as_tensor(jaccard, device=resolve_device(device))
+    j = jaccard.to(torch.float32)
+    return 1.0 - _integer_pow(1.0 - _integer_pow(j, rows_per_band), bands)

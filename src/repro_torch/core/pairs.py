@@ -16,7 +16,12 @@ Port of the JAX package's ``core/pairs.py`` host driver around the
   the numpy path runs with a ``RuntimeWarning``.
 - beyond ``budget`` slots, a seeded uniform sample of ``budget`` slots
   is decoded (``exact=False``); the sampler is the reference's, so every
-  backend of both packages draws the same slots.
+  backend of both packages draws the same slots;
+- ``enumerate_pairs`` streams the raw slot decode in chunks, without
+  dedupe (meta-blocking's edge multiplicities); ``pair_covered`` tells,
+  for labelled pairs, whether an accepted block holds both (PC), by a
+  sorted search on the device; the ``pair_bit_index`` family is the
+  paper's triangular pair bitmap (host numpy).
 
 The winners are compacted on the device; ``PairSet`` holds them as host
 numpy plus the device buffers the matcher reads.
@@ -260,28 +265,40 @@ def _sort_kind(blocks: Blocks) -> str:
     return "comparator"
 
 
+def _device_csr(blocks: Blocks, dev: torch.device):
+    """The CSR and its slot prefix on ``dev``, as the decode takes them:
+    (cum int64 (B+1,), start, size, members int32, search steps)."""
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return (up(pairs_ref.cum_pair_counts(blocks.size)),
+            up(blocks.start.astype(np.int32)), up(blocks.size.astype(np.int32)),
+            up(blocks.members.astype(np.int32)),
+            pairs_kernels.search_steps_for(int(blocks.size.max())))
+
+
+def _decode_chunks(csr, total: int, chunk: int):
+    """Decode every slot of ``total``, ``chunk`` slots a launch: yields
+    (a, b, src_size, valid) per chunk, in the canonical slot order."""
+    cum_d, start, size, members, steps = csr
+    for base in range(0, total, chunk):
+        yield pairs_kernels.decode_chunk(cum_d, start, size, members, base,
+                                         total, chunk=chunk, steps=steps)
+
+
 def _decode_slots(blocks: Blocks, slots: Optional[torch.Tensor], total: int,
                   dev: torch.device):
     """Decode every slot (exact) or the sampled ones, in chunks of
     ``DECODE_CHUNK``. Returns (a, b, src_size, valid) on ``dev``."""
-    def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    start = up(blocks.start.astype(np.int32))
-    size = up(blocks.size.astype(np.int32))
-    members = up(blocks.members.astype(np.int32))
-    steps = pairs_kernels.search_steps_for(int(blocks.size.max()))
-    cum_d = up(pairs_ref.cum_pair_counts(blocks.size))
-    parts = []
+    csr = _device_csr(blocks, dev)
+    cum_d, start, size, members, steps = csr
     if slots is None:
         chunk = min(DECODE_CHUNK, _round_up(max(total, 1), 1024))
-        for base in range(0, total, chunk):
-            parts.append(pairs_kernels.decode_chunk(
-                cum_d, start, size, members, base, total, chunk=chunk,
-                steps=steps))
+        parts = list(_decode_chunks(csr, total, chunk))
     else:
         # split int64 slots into (block, local); global slot indices
         # overflow int32, block-local ones do not
+        parts = []
         block = torch.searchsorted(cum_d, slots, right=True) - 1
         local = (slots - cum_d[block]).to(torch.int32)
         for off in range(0, slots.shape[0], DECODE_CHUNK):
@@ -324,8 +341,8 @@ def dedupe_pairs(blocks: Blocks, budget: int = 50_000_000,
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
     if backend == "distributed":
         raise NotImplementedError(
-            "dedupe_pairs(backend='distributed') is not ported yet "
-            "(ROADMAP A7: sharding and distributed)")
+            "dedupe_pairs(backend='distributed') is not ported yet: it belongs "
+            "to the mesh and distributed half of ROADMAP A7 (A7b)")
     dev = resolve_device(device)
     total = blocks.num_pair_slots
     if total == 0:
@@ -339,3 +356,116 @@ def dedupe_pairs(blocks: Blocks, budget: int = 50_000_000,
         return PairSet(a, b, s, exact, total)
     a, b, s, (da, db) = _dedupe_device(blocks, slots, total, dev)
     return PairSet(a, b, s, exact, total, device_a=da, device_b=db)
+
+
+def enumerate_pairs(blocks: Blocks, backend: str = "auto",
+                    chunk_pairs: int = 1 << 20, device: DeviceLike = None
+                    ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Stream raw (a, b, block_size) numpy chunks WITHOUT dedupe.
+
+    For consumers that need multiplicities (meta-blocking's CBS edge
+    weights) rather than the deduped pair set. ``"auto"`` decodes the
+    canonical slot order on ``device`` in chunks of ``chunk_pairs`` slots
+    (the tri-decode kernel on the card), the reference's device order
+    chunk for chunk; ``"numpy"`` streams ``iter_block_pairs``. The whole
+    slot space must fit the int32 slot indices; a block set outside that
+    contract takes the numpy stream with a ``RuntimeWarning``.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+    if backend == "distributed":
+        raise ValueError(
+            "enumerate_pairs streams raw pre-dedupe chunks and has no "
+            "distributed backend; use a single-device backend here")
+    # min() maps an overflowing slot total onto the budget >= int32 check
+    if _resolve_backend(backend, blocks,
+                        min(blocks.num_pair_slots, INT32_MAX)) == "numpy":
+        yield from iter_block_pairs(blocks, chunk_pairs)
+        return
+    total = blocks.num_pair_slots
+    if total == 0:
+        return
+    dev = resolve_device(device)
+    chunk = min(chunk_pairs, _round_up(total, 1024))
+    for a, b, s, v in _decode_chunks(_device_csr(blocks, dev), total, chunk):
+        yield tuple(x[v].cpu().numpy().astype(np.int64) for x in (a, b, s))
+
+
+# ---------------------------------------------------------------------------
+# Triangular pair bitmap (paper §3.1 equation for b_{i,j})
+# ---------------------------------------------------------------------------
+
+
+def pair_bit_index(i: np.ndarray, j: np.ndarray, n: int) -> np.ndarray:
+    """Bit index of pair (i, j), i < j, in the C(n,2) upper-triangular map."""
+    i = np.asarray(i, np.int64)
+    j = np.asarray(j, np.int64)
+    return i * (n - 1) - (i - 1) * i // 2 + j - i - 1
+
+
+def pair_from_bit_index(bit: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of ``pair_bit_index``."""
+    bit = np.asarray(bit, np.int64)
+    # row i satisfies cum(i) <= bit < cum(i+1), cum(i) = i*(n-1) - (i-1)i/2
+    i_all = np.arange(n, dtype=np.int64)
+    cum = i_all * (n - 1) - (i_all - 1) * i_all // 2
+    i = np.searchsorted(cum, bit, side="right") - 1
+    j = bit - cum[i] + i + 1
+    return i, j
+
+
+def build_pair_bitmap(n: int, kept_i: np.ndarray, kept_j: np.ndarray) -> np.ndarray:
+    """Packed uint8 bitmap of C(n,2) bits with the kept pairs set."""
+    bits = np.zeros(n * (n - 1) // 2, np.uint8)
+    bits[pair_bit_index(kept_i, kept_j, n)] = 1
+    return np.packbits(bits)
+
+
+def read_pair_bitmap(n: int, bitmap: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    bits = np.unpackbits(bitmap, count=n * (n - 1) // 2)
+    return pair_from_bit_index(np.flatnonzero(bits), n)
+
+
+# ---------------------------------------------------------------------------
+# Membership for recall (PC) evaluation without pair materialization
+# ---------------------------------------------------------------------------
+
+
+def pair_covered(result: BlockingResult, pairs_a: np.ndarray, pairs_b: np.ndarray,
+                 device: DeviceLike = None) -> np.ndarray:
+    """For labeled pairs (a, b): does any accepted block contain both?
+
+    No pair materialization, so it works at any scale. On ``device``, the
+    assignments sorted by (key, rid) in u64 order give each key a dense
+    rank; the table ``rank << 32 | rid`` is sorted, and each (a, b) looks
+    up ``rank(k) << 32 | b`` for every key ``k`` of ``a`` (a's keys from
+    the assignments sorted by rid) with ``torch.searchsorted``. The same
+    boolean array as the reference's per-pair loop.
+    """
+    dev = resolve_device(device)
+    pa = torch.from_numpy(np.asarray(pairs_a, np.int64)).to(dev)
+    pb = torch.from_numpy(np.asarray(pairs_b, np.int64)).to(dev)
+    covered = torch.zeros(pa.shape[0], dtype=torch.bool, device=dev)
+    if len(result.rids) == 0 or pa.shape[0] == 0:
+        return covered.cpu().numpy()
+    key64 = (result.key_hi.astype(np.uint64) << np.uint64(32)) | result.key_lo.astype(np.uint64)
+    key = u64.from_numpy_u64(key64, dev)
+    rid = torch.from_numpy(np.asarray(result.rids, np.int64)).to(dev)
+    order = torch.sort(rid, stable=True)[1]
+    order = order[u64.sort(key[order])[1]]
+    key, rid = key[order], rid[order]
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    rank = torch.cumsum(first, 0) - 1
+    table = (rank << 32) | rid                 # sorted: rids are < 2**31
+    by_rid = torch.sort(rid, stable=True)[1]
+    rid_sorted, rank_by_rid = rid[by_rid], rank[by_rid]
+    lo = torch.searchsorted(rid_sorted, pa, side="left")
+    deg = torch.searchsorted(rid_sorted, pa, side="right") - lo
+    owner = torch.repeat_interleave(torch.arange(pa.shape[0], device=dev), deg)
+    offs = torch.arange(owner.shape[0], device=dev) - (torch.cumsum(deg, 0) - deg)[owner]
+    query = (rank_by_rid[lo[owner] + offs] << 32) | pb[owner]
+    pos = torch.searchsorted(table, query).clamp(max=table.shape[0] - 1)
+    hit = (table[pos] == query) & (pb[owner] >= 0) & (pb[owner] <= INT32_MAX)
+    covered[owner[hit]] = True
+    return covered.cpu().numpy()

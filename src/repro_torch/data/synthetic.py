@@ -72,6 +72,10 @@ class Corpus:
         lo, hi = np.minimum(a, b), np.maximum(a, b)
         return lo.astype(np.int64), hi.astype(np.int64)
 
+    def is_duplicate(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Ground truth per pair: do records a and b share an entity?"""
+        return self.entity_id[a] == self.entity_id[b]
+
 
 def _token_hash(ids: np.ndarray, namespace: int) -> np.ndarray:
     """Stable uint32 token hash per vocab id."""
@@ -218,3 +222,19 @@ def corpus_from_numpy(columns: Mapping[str, object],
     entity_id = np.asarray(entity_id)
     return Corpus(columns=cols, blocking=blk, entity_id=entity_id,
                   num_records=len(entity_id))
+
+
+def jaccard_pair_corpus(n_pairs: int, jaccard: float, set_size: int = 40,
+                        seed: int = 0):
+    """Pairs of token sets with (near-)exact Jaccard j, to check the
+    analytic LSH(b, w, j) curve of paper Fig. 1a: (a, b) uint32 (n_pairs,
+    set_size) token rows and the realised Jaccard."""
+    rng = np.random.default_rng(seed)
+    inter = int(round(2 * set_size * jaccard / (1 + jaccard)))
+    only = set_size - inter
+    total = inter + 2 * only
+    base = rng.integers(0, 1 << 31, size=(n_pairs, total)).astype(np.uint32)
+    a = np.concatenate([base[:, :inter], base[:, inter:inter + only]], axis=1)
+    b = np.concatenate([base[:, :inter], base[:, inter + only:]], axis=1)
+    true_j = inter / (2 * set_size - inter) if (2 * set_size - inter) else 1.0
+    return a, b, true_j

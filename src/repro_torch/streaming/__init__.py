@@ -17,8 +17,11 @@ to what they change, not to the corpus. Two operations:
 - ``engine.StreamingEngine``: the slot-scheduled front-end, with optional
   matcher scoring of each ingest's new pairs.
 
-The sharded store (``ShardedBlockStore``) is not ported yet.
+- ``shard.ShardedBlockStore``: the same surface over N fingerprint-routed
+  ``StoreShard``s (``ShardRouter``, host owner grouping); a mesh is not
+  ported yet.
 """
 from .store import BlockStore, LevelState  # noqa: F401
 from .delta import DeltaBlocker, IngestReport, QueryResult  # noqa: F401
 from .engine import StreamingEngine, RecordBatch  # noqa: F401
+from .shard import ShardedBlockStore, ShardRouter, StoreShard  # noqa: F401

@@ -126,9 +126,10 @@ class DeltaBlocker:
     """Runs the incremental iteration loop against one BlockStore, on the
     store's device.
 
-    ``sort_backend`` accepts ``"auto"`` only: the port's pair engine picks
-    its dedupe sort from the data. A store that carries a mesh (the
-    sharded store and the routed ledger sync) is not ported yet;
+    ``store`` is a ``BlockStore`` or a meshless ``ShardedBlockStore``
+    (the same surface). ``sort_backend`` accepts ``"auto"`` only: the
+    port's pair engine picks its dedupe sort from the data. A store on a
+    mesh (the routed ledger sync) is not ported yet;
     ``routed_fallback_total`` stays 0.
     """
 
@@ -138,8 +139,8 @@ class DeltaBlocker:
                              f"got {sort_backend!r}")
         if getattr(store, "mesh", None) is not None:
             raise NotImplementedError(
-                "a store on a mesh (routed ledger sync) is not ported yet "
-                "(ROADMAP A7: sharding and distributed)")
+                "a store on a mesh (routed ledger sync) is not ported yet: "
+                "it belongs to the mesh and distributed half of ROADMAP A7 (A7b)")
         self.store = store
         self.cfg = store.cfg
         self.device = store.device
@@ -271,7 +272,8 @@ class DeltaBlocker:
                     changed_b[j][rm_e_idx[j]] = True
                 if rm_e_idx.shape[1]:
                     with record_function("stream.cms_fold"):
-                        state.cms_apply(rm_e_idx, -1)
+                        state.cms_apply(rm_e_idx, -1,
+                                        state.key64[rm_rows][old_valid])
                 old_keep = state.keep[rm_rows]
                 if old_keep.any():
                     orid = np.broadcast_to(state.rids[rm_rows][:, None],
@@ -296,7 +298,7 @@ class DeltaBlocker:
                 add_e_idx = idx[:, v]
                 if add_e_idx.shape[1]:
                     with record_function("stream.cms_fold"):
-                        state.cms_apply(add_e_idx, 1)
+                        state.cms_apply(add_e_idx, 1, r_k64[nv][v])
                 state.append_rows(r_rids[nv], r_k64[nv], v, r_psize[nv], idx)
 
         # ---- re-estimate entries hashing into a touched bucket ----

@@ -25,6 +25,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.match.ops import packed_host
 from ..serving.scheduler import collate_fifo, drain
 from .delta import DeltaBlocker, IngestReport, QueryResult
+from .shard import ShardedBlockStore
 from .store import BlockStore
 
 
@@ -128,8 +129,8 @@ class StreamingEngine:
     ``device`` holds the store and runs every device step (``None`` means
     CUDA and raises without a card). ``match_backend`` ``"host"`` scores
     new pairs and returns the scores; ``"auto"`` runs the fused match and
-    returns only the matched pairs. ``n_shards > 1`` (the sharded store)
-    is not ported yet.
+    returns only the matched pairs. ``n_shards > 1`` keeps the state in
+    a meshless ``ShardedBlockStore``.
     """
 
     def __init__(self, blocking: Dict[str, blocks_mod.ColumnBlocking],
@@ -138,14 +139,14 @@ class StreamingEngine:
                  matcher_cfg=None, sort_backend: str = "auto",
                  n_shards: int = 1, match_backend: str = "host",
                  device: DeviceLike = None):
-        if n_shards > 1:
-            raise NotImplementedError(
-                "StreamingEngine(n_shards > 1) is not ported yet "
-                "(ROADMAP A7: sharding and distributed)")
         self.blocking = blocking
         self.match_backend = matcher.resolve_match_backend(match_backend)
         self.device = resolve_device(device)
-        self.store = BlockStore(cfg, device=self.device)
+        if n_shards > 1:
+            self.store = ShardedBlockStore(cfg, n_shards=n_shards,
+                                           device=self.device)
+        else:
+            self.store = BlockStore(cfg, device=self.device)
         self.blocker = DeltaBlocker(self.store, sort_backend=sort_backend)
         self.ingest_slots = ingest_slots
         self.query_slots = query_slots

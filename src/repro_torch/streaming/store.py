@@ -155,6 +155,14 @@ def reduce_by_key(keys: np.ndarray, cnt: np.ndarray, fp: np.ndarray
     return uk, ucnt, ufp
 
 
+def cms_gather(cms: torch.Tensor, idx: np.ndarray) -> np.ndarray:
+    """Per-depth bucket counts of a device sketch: host (depth,
+    *entry_shape) int32."""
+    idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(cms.device).long()
+    got = torch.stack([cms[j][idx_t[j]] for j in range(idx_t.shape[0])])
+    return got.cpu().numpy()
+
+
 @dataclasses.dataclass
 class LevelKeys:
     """One level's key space: the CMS (a device tensor) + the exact key
@@ -181,13 +189,16 @@ class LevelKeys:
 
     # ---- CMS (linear sketch: fold-in/out = elementwise +/-) ----
 
-    def cms_apply(self, idx: np.ndarray, sign: int) -> None:
+    def cms_apply(self, idx: np.ndarray, sign: int,
+                  key64: Optional[np.ndarray] = None) -> None:
         """Fold entry occurrences in (+1) or out (-1) of the sketch.
 
         ``idx`` holds the entries' (depth, M) cached bucket indices; their
         sketch is built on the device (the cms kernel on the card) and
-        folded in or subtracted.
+        folded in or subtracted. ``key64`` (the entries' keys) is unused
+        here; the sharded key space routes on it.
         """
+        del key64
         if sign not in (1, -1):
             raise ValueError(f"sign must be +1 or -1, got {sign}")
         dev = self.cms.device
@@ -198,12 +209,7 @@ class LevelKeys:
         self.cms = fold(self.cms, delta)
 
     def cms_lookup(self, idx: np.ndarray) -> np.ndarray:
-        """Gather per-depth bucket counts on the device: host (depth,
-        *entry_shape) int32."""
-        idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(
-            self.cms.device).long()
-        got = torch.stack([self.cms[j][idx_t[j]] for j in range(idx_t.shape[0])])
-        return got.cpu().numpy()
+        return cms_gather(self.cms, idx)
 
     # ---- exact key table ----
 
@@ -491,7 +497,7 @@ class LevelState:
     accept: np.ndarray    # (R, W) bool  accepted assignment
     survive: np.ndarray   # (R, W) bool  on a surviving over-sized block
     size: np.ndarray      # (R, W) int32 exact keep-count (0 where ~keep)
-    keyspace: LevelKeys   # CMS + key table
+    keyspace: LevelKeys   # CMS + key table (or a sharded composite)
 
     @property
     def num_rows(self) -> int:
@@ -502,8 +508,8 @@ class LevelState:
         return int(self.valid.sum())
 
     @staticmethod
-    def empty(width: int, cms_cfg: sketches.CMSConfig,
-              device: torch.device) -> "LevelState":
+    def empty(width: int, cms_cfg: sketches.CMSConfig, device: torch.device,
+              keyspace=None) -> "LevelState":
         depth = cms_cfg.depth
         return LevelState(
             width=width,
@@ -517,13 +523,15 @@ class LevelState:
             accept=np.zeros((0, width), bool),
             survive=np.zeros((0, width), bool),
             size=np.zeros((0, width), np.int32),
-            keyspace=LevelKeys.empty(cms_cfg, device),
+            keyspace=(LevelKeys.empty(cms_cfg, device) if keyspace is None
+                      else keyspace),
         )
 
     # ---- key-space delegation (the delta algorithm's only key-space API) --
 
-    def cms_apply(self, idx: np.ndarray, sign: int) -> None:
-        self.keyspace.cms_apply(idx, sign)
+    def cms_apply(self, idx: np.ndarray, sign: int,
+                  key64: Optional[np.ndarray] = None) -> None:
+        self.keyspace.cms_apply(idx, sign, key64)
 
     def cms_lookup(self, idx: np.ndarray) -> np.ndarray:
         return self.keyspace.cms_lookup(idx)

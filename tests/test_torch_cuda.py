@@ -343,3 +343,52 @@ def test_level_cms_apply_through_kernel(dev, n):
         assert got.min() >= 0
     assert np.array_equal(lk.cms_lookup(base[:, :64]),
                           np.stack([want[j][base[j, :64]] for j in range(cfg.depth)]))
+
+
+@pytest.mark.parametrize("n_shards", [4, 8])
+def test_sharded_smoke_cuda_equals_cpu(dev, n_shards):
+    """The smoke corpus through StreamingEngine(n_shards): the shards'
+    sketch slices fold through the cms kernel; every report, the ledger,
+    the candidate pairs and the probes equal the cpu run and the single
+    store's."""
+    from repro_torch.kernels.cms import cms
+    from repro_torch.streaming import smoke
+    before = cms.KERNEL.launches
+    gpu = smoke.sharded_run(dev, n_shards)
+    assert cms.KERNEL.launches > before
+    assert smoke.differing(gpu, smoke.sharded_run("cpu", n_shards)) == []
+    assert smoke.differing(gpu, smoke.sharded_run(dev, 1)) == []
+    assert len(gpu["ledger"][0]) > 0
+
+
+def test_evaluate_and_meta_blocking_cuda_equal_cpu(dev):
+    """THR, HDB and PMB on a small corpus, evaluated on the card and on
+    the CPU: equal metrics field for field, equal PMB pairs; PMB's edge
+    enumeration goes through the tri-decode kernel."""
+    import dataclasses
+    from repro_torch.core import baselines, blocks, hdb, metablocking, pairs
+    from repro_torch.data import metrics, synthetic
+    from repro_torch.kernels.pairs import tri as td
+    spec = synthetic.SyntheticSpec(num_entities=1500, seed=9)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        corpus = synthetic.generate(spec, device=d)
+        keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
+        before = td.KERNEL.launches
+        pmb_pairs = metablocking.meta_blocking(keys, valid, device=d)
+        if d.type == "cuda":
+            assert td.KERNEL.launches > before
+        res = {"THR": baselines.threshold_blocking(keys, valid, 40, device=d),
+               "HDB": hdb.hashed_dynamic_blocking(keys, valid,
+                                                  hdb.HDBConfig(max_block_size=40), device=d),
+               "PMB": metablocking.meta_blocking_result(keys, valid, device=d)}
+        labeled = corpus.labeled_pairs()
+        out[d.type] = (pmb_pairs,
+                       {m: dataclasses.asdict(metrics.evaluate(r, corpus, labeled, device=d))
+                        for m, r in res.items()},
+                       pairs.pair_covered(res["HDB"], *labeled, device=d))
+    (ga, gb), gm, gcov = out["cuda"]
+    (ca, cb), cm, ccov = out["cpu"]
+    assert np.array_equal(ga, ca) and np.array_equal(gb, cb) and len(ga) > 0
+    assert gm == cm
+    assert np.array_equal(gcov, ccov) and gcov.any()

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import baselines as jbase  # noqa: E402
 from repro.core import blocks as jblocks  # noqa: E402
 from repro.core import hdb as jhdb  # noqa: E402
+from repro.core import oracle as joracle  # noqa: E402
 from repro.core import segments as jseg  # noqa: E402
 from repro.core import sketches as jsk  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
@@ -187,3 +188,65 @@ def test_no_warning_without_overflow():
         warnings.simplefilter("error", hdb.RepCapacityWarning)
         tr = hdb.hashed_dynamic_blocking(tk, tv, hdb.HDBConfig(**cfg), device="cpu")
     assert tr.rep_overflow_total == 0
+
+
+# ---------------------------------------------------------------------------
+# max_oversize_keys <= 2: the reference raises once an iteration starts with
+# a zero-column key matrix (``src/repro/core/hdb.py:229``, ROADMAP Queue C),
+# so the port is held to the independent oracle instead (the oracle counts
+# exactly, so the port runs it at a width where the sketch does not
+# over-count)
+# ---------------------------------------------------------------------------
+
+
+def _oracle_accepted(keys, valid, cfg):
+    k64 = u64.to_numpy_u64(keys)
+    v = valid.numpy()
+    record_keys = [set(int(x) for x in k64[r][v[r]]) for r in range(v.shape[0])]
+    ocfg = jhdb.HDBConfig(**dict(cfg, cms_width=1 << 20))
+    return joracle.oracle_hdb(record_keys, ocfg)
+
+
+@pytest.mark.parametrize("max_oversize_keys", [1, 2])
+def test_few_oversize_keys_batch_matches_oracle(max_oversize_keys):
+    tc = synthetic.generate(synthetic.SyntheticSpec(num_entities=600, seed=11),
+                            device="cpu")
+    tk, tv = blocks.build_keys(tc.columns, tc.blocking)
+    cfg = dict(max_block_size=5, max_oversize_keys=max_oversize_keys, cms_width=1 << 12)
+    tr = hdb.hashed_dynamic_blocking(tk, tv, hdb.HDBConfig(**cfg), device="cpu")
+    key64 = (tr.key_hi.astype(np.uint64) << np.uint64(32)) | tr.key_lo.astype(np.uint64)
+    got = set(zip(tr.rids.tolist(), (int(k) for k in key64)))
+    want = _oracle_accepted(tk, tv, cfg)
+    assert got == want and len(want) > 0
+    assert len(tr.rids) == len(got)
+
+
+@pytest.mark.parametrize("max_oversize_keys", [1, 2])
+def test_few_oversize_keys_streaming_matches_oracle(max_oversize_keys):
+    from repro_torch.streaming import BlockStore, DeltaBlocker
+    tc = synthetic.generate(synthetic.SyntheticSpec(num_entities=600, seed=11),
+                            device="cpu")
+    tk, tv = blocks.build_keys(tc.columns, tc.blocking)
+    cfg = dict(max_block_size=5, max_oversize_keys=max_oversize_keys, cms_width=1 << 12)
+    store = BlockStore(hdb.HDBConfig(**cfg), device="cpu")
+    blk = DeltaBlocker(store)
+    for part in np.array_split(np.arange(tc.num_records), 3):
+        idx = torch.from_numpy(part)
+        blk.ingest_keys(tk[idx], tv[idx])
+    csr = store.accepted_blocks(min_size=1)
+    key64 = (csr.key_hi.astype(np.uint64) << np.uint64(32)) | csr.key_lo.astype(np.uint64)
+    got = set(zip(csr.members.tolist(), (int(k) for k in np.repeat(key64, csr.size))))
+    assert got == _oracle_accepted(tk, tv, cfg)
+    assert len(csr.members) == len(got) > 0
+    # the reference's streaming path does not raise here: its store agrees
+    from repro.streaming import BlockStore as JBlockStore
+    from repro.streaming import DeltaBlocker as JDeltaBlocker
+    jstore = JBlockStore(jhdb.HDBConfig(**cfg))
+    jblk = JDeltaBlocker(jstore)
+    limbs, valid = u64.to_limbs(tk), tv.numpy()
+    for part in np.array_split(np.arange(tc.num_records), 3):
+        jblk.ingest_keys(limbs[part], valid[part])
+    want = jstore.accepted_blocks(1)
+    for f in ("key_hi", "key_lo", "start", "size", "members"):
+        assert np.array_equal(getattr(csr, f), getattr(want, f)), f
+    assert np.array_equal(store.led_pack, jstore.led_pack)

@@ -34,7 +34,7 @@ from repro_torch.core import blocks, hashing, hdb, pairs, sketches, u64  # noqa:
 from repro_torch.data import components, matcher, pipeline, synthetic  # noqa: E402
 from repro_torch.serving import scheduler  # noqa: E402
 from repro_torch.streaming import (BlockStore, DeltaBlocker, RecordBatch,  # noqa: E402
-                                   StreamingEngine)
+                                   ShardedBlockStore, StreamingEngine)
 from repro_torch.streaming.store import LevelKeys, pack_key64  # noqa: E402
 
 
@@ -480,8 +480,11 @@ def test_entry_points_refuse_what_is_not_ported(monkeypatch):
         DeltaBlocker(store, sort_backend="radix")
     with pytest.raises(ValueError, match="sort_backend"):
         DeltaBlocker(store, sort_backend="comparator")
+    # the meshless sharded store is ported; a mesh is not
+    assert isinstance(StreamingEngine({}, cfg, n_shards=2, device="cpu").store,
+                      ShardedBlockStore)
     with pytest.raises(NotImplementedError, match="A7"):
-        StreamingEngine({}, cfg, n_shards=2, device="cpu")
+        ShardedBlockStore(cfg, n_shards=2, mesh=object(), device="cpu")
     store.mesh = object()
     with pytest.raises(NotImplementedError, match="A7"):
         DeltaBlocker(store)
