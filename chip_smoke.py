@@ -68,12 +68,38 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    against its plain version, and on cpu: the metrics must be equal field
    for field. SYN1M (phase 3's corpus and keys) on cuda, launch counts
    zeroed just before and read just after; a PMB over its edge budget is
-   recorded as the bench records it.
+   recorded as the bench records it;
+7. mesh (``core/distributed``, the sharded store on a mesh), after the
+   build of phase 1, so ranks only load the libraries:
+   b. a one-rank NCCL group in this process: distributed HDB on SYN1M
+      (phase 3's keys, max_block_size 200, the representative capacity
+      sized from the single device's largest iteration) with rep_overflow
+      0 in every iteration, held to the single device by the reference's
+      rule (no extra assignment, at most 2 missing, equal
+      n_surviving_oversized and n_right_cms); the routed dedupe of its
+      blocks at dedup_corpus's 20M budget (sampled) and of SYN10K's blocks
+      at an exact budget, each PairSet equal to the single device's; each
+      run timed with the card synchronised and the launch counts zeroed
+      just before and read just after, then replayed with every launch
+      held against its plain version;
+   c. MESH_RANKS gloo ranks spawned on the one card (NCCL takes one rank a
+      card): the smoke config and SYN10K through distributed HDB and the
+      routed dedupe, tests/_shard_worker.py's store scenario on the mesh
+      (routed, and at route_slack 0.01, whose fallback must warn and lose
+      nothing), SYN1M's distributed HDB, and STREAM100K's base and two
+      deltas through ShardedBlockStore(n_shards=MESH_RANKS) on the mesh
+      (no fallback at the default slack, equal to phase 5b's store); every
+      launch held against its plain version; each rank equal to every
+      other, to its cpu run and to the single-device port on cuda.
+   Each run prints ``mesh,<what>,<ranks>,<backend>,<seconds>,<rep_overflow>,
+   <route_overflow>``.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` from the SYN1M HDB run; ``stream100k_delta_launches``,
 ``syn_stream_launches`` and ``sharded_delta_launches`` from phase 5,
-``table2_syn1m_launches`` from phase 6); the last line is
+``table2_syn1m_launches`` from phase 6, ``mesh_launches`` from phase 7b's
+timed runs and ``mesh_gloo_launches`` from rank 0 of phase 7c); the last
+line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
@@ -626,10 +652,9 @@ def check_launches(run, kernels):
 
 
 def smoke_pipeline():
-    from repro_torch.core import hdb
     from repro_torch.data import pipeline, synthetic
-    spec = synthetic.SyntheticSpec(num_entities=150, seed=7)
-    cfg = hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12)
+    from repro_torch.streaming import smoke
+    spec, cfg = smoke.smoke_config()
     for blocker in ("hdb", "threshold"):
         reps = {dev: pipeline.dedup_corpus(synthetic.generate(spec, device=dev),
                                            cfg, blocker=blocker, device=dev)
@@ -1099,17 +1124,443 @@ def table2(kernels, syn1m):
     return launches
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from repro_torch.kernels import _build
+# ---------------------------------------------------------------------------
+# phase 7: the mesh half (core/distributed, the sharded store on a mesh)
+# ---------------------------------------------------------------------------
+
+# the kernels the distributed path runs (minhash only builds keys, match
+# only matches)
+MESH_PATH = ("cms_update", "mix64", "combine64", "tri_decode", "radix_sort",
+             "radix_digit_counts")
+MESH_RANKS = 4
+# tests/_shard_worker.py's store scenarios: its HDBConfig, and per run the
+# route slack, records and key cardinality (the overflow run's slack of
+# 0.01 must overflow the 8-lane buckets and fall back, loudly)
+SHARD_CFG = dict(max_block_size=8, max_iterations=5, max_oversize_keys=6,
+                 cms_width=1 << 10)
+SHARD_RUNS = {"routed": (2.0, 120, 20), "overflow": (0.01, 240, 120)}
+
+
+def mesh_line(what, ranks, backend, secs, rep_overflow, route_overflow):
+    """One phase-7 run: rep_overflow sums HDB's IterationStats.rep_overflow
+    (0 for a pair dedupe); route_overflow counts the RepCapacityWarnings of
+    a routed fallback."""
+    print(f"mesh,{what},{ranks},{backend},{secs!r},{rep_overflow},{route_overflow}",
+          flush=True)
+
+
+def assignment_hashes(res):
+    """One u64 hash a (rid, key) assignment (for set differences of tens of
+    millions of assignments; two distinct assignments collide with
+    probability 2**-64)."""
+    from repro_torch.core import hashing
+    key = (res.key_hi.astype(np.uint64) << np.uint64(32)) | res.key_lo.astype(np.uint64)
+    return hashing.np_hash_u64_vec(key ^ hashing.np_mix64_vec(
+        np.asarray(res.rids, np.uint64)), seed=0x5E7)
+
+
+def hold_to_single(tag, got, want):
+    """The reference's rule for distributed HDB against the single device
+    (tests/_dist_worker.py:96-104): no extra assignment, at most 2 missing
+    (Bloom false positives), equal n_surviving_oversized and n_right_cms
+    in every iteration. Both list the assignments in the same order, so
+    equal arrays need no set difference. Returns the missing count."""
+    if all(np.array_equal(getattr(got, f), getattr(want, f))
+           for f in ("rids", "key_hi", "key_lo")):
+        n_extra = n_missing = 0
+    else:
+        hg, hw = assignment_hashes(got), assignment_hashes(want)
+        n_extra = len(np.setdiff1d(hg, hw))
+        n_missing = len(np.setdiff1d(hw, hg))
+    if n_extra or n_missing > 2:
+        raise AssertionError(f"{tag}: {n_extra} extra, {n_missing} missing "
+                             "assignments against the single device")
+    for a, b in zip(want.stats, got.stats):
+        if (a.n_surviving_oversized, a.n_right_cms) != (b.n_surviving_oversized,
+                                                        b.n_right_cms):
+            raise AssertionError(f"{tag}: iteration {a.iteration} stats differ: "
+                                 f"{a} vs {b}")
+    return n_missing
+
+
+def pairset_arrays(ps):
+    return [ps.a, ps.b, ps.src_size, ps.exact, ps.total_slots]
+
+
+def blocking_arrays(res):
+    return [res.rids, res.key_hi, res.key_lo,
+            [dataclasses.astuple(st) for st in res.stats]]
+
+
+def dist_config(reps):
+    """DistConfig for a layout whose largest iteration has ``reps``
+    over-sized blocks: the representative capacity at least that, rounded
+    up to a power of two, and a Bloom filter of at least the default size
+    that ``BloomConfig.for_capacity`` gives it (a false-positive rate near
+    1e-8)."""
+    from repro_torch.core import distributed, sketches
+    default = distributed.DistConfig()
+    rcap = max(default.rep_capacity_per_shard, 1 << max(reps - 1, 0).bit_length())
+    bloom = sketches.BloomConfig.for_capacity(rcap)
+    if bloom.num_slots <= default.bloom_slots:
+        return distributed.DistConfig(rep_capacity_per_shard=rcap)
+    return distributed.DistConfig(rep_capacity_per_shard=rcap,
+                                  bloom_slots=bloom.num_slots,
+                                  bloom_hashes=bloom.num_hashes)
+
+
+def caught_capacity(fn):
+    """(fn(), the RepCapacityWarnings it raised)."""
+    import warnings
+    from repro_torch.core.hdb import RepCapacityWarning
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, sum(issubclass(w.category, RepCapacityWarning) for w in caught)
+
+
+def corpus_keys(spec, device, world):
+    from repro_torch.core import blocks, distributed
+    from repro_torch.data import synthetic
+    corpus = synthetic.generate(spec, device=device)
+    return distributed.pad_rows(*blocks.build_keys(corpus.columns, corpus.blocking),
+                                world)
+
+
+def store_run(store, n, card):
+    """The store scenario's four parts into ``store``; its ledger,
+    accepted blocks and counters."""
+    from repro_torch.streaming import DeltaBlocker, smoke
+    # tests/_shard_worker.py's random_keys(rng(17), n, 5, card), row-deduped
+    keys, valid = smoke.scenario_keys(np.random.default_rng(17), n, 5, card,
+                                      store.device)
+    blk = DeltaBlocker(store)
+    n = keys.shape[0]
+    cuts = [0, n // 4 + 1, n // 2, 3 * n // 4 + 1, n]
+    _, warned = caught_capacity(lambda: [blk.ingest_keys(keys[a:b], valid[a:b])
+                                         for a, b in zip(cuts[:-1], cuts[1:])])
+    acc = store.accepted_blocks(1)
+    out = {"ledger": [store.led_pack, store.led_src],
+           "accepted": [acc.key_hi, acc.key_lo, acc.start, acc.size, acc.members]}
+    if hasattr(store, "router"):
+        out["counters"] = [store.router.exchange_total,
+                           store.router.exchange_fallback_total,
+                           blk.routed_fallback_total, warned]
+    return out
+
+
+def syn10k_spec():
+    from repro_torch.core import hdb
+    from repro_torch.data import synthetic
+    return (synthetic.SyntheticSpec(num_entities=4_000, seed=1),     # benchmarks/common.py:45
+            hdb.HDBConfig(max_block_size=TABLE2_MAX_BLOCK))
+
+
+def mesh_cases(mesh, world, device):
+    """The 7c runs on one rank: the smoke config and SYN10K through
+    distributed HDB and the routed exact dedupe, and the store scenario on
+    the mesh at both slacks. Returns {case: (result values, seconds,
+    rep_overflow, route_overflow)}."""
+    from repro_torch.core import distributed, hdb, pairs
+    from repro_torch.streaming import ShardedBlockStore, smoke
+    out = {}
+    for name, (spec, cfg) in (("smoke", smoke.smoke_config()), ("SYN10K", syn10k_spec())):
+        keys, valid = corpus_keys(spec, device, world)
+        res, secs = synced(lambda: distributed.distributed_hashed_dynamic_blocking(
+            keys, valid, cfg, mesh, device=device))
+        out[f"{name} hdb"] = (blocking_arrays(res), secs, res.rep_overflow_total, 0)
+        blk = pairs.build_blocks(res, device=device)
+        (ps, warned), secs = synced(lambda: caught_capacity(lambda: pairs.dedupe_pairs(
+            blk, budget=blk.num_pair_slots + 1, backend="distributed", mesh=mesh,
+            device=device)))
+        out[f"{name} routed exact"] = (pairset_arrays(ps), secs, 0, warned)
+    for run, (slack, n, card) in SHARD_RUNS.items():
+        st = ShardedBlockStore(hdb.HDBConfig(**SHARD_CFG), n_shards=world, mesh=mesh,
+                               route_slack=slack, device=device)
+        got, secs = synced(lambda: store_run(st, n, card))
+        out[f"store {run}"] = (got, secs, 0, got["counters"][3])
+    return out
+
+
+def mesh_stream100k(mesh, world, keys, valid, parts, cfg):
+    """STREAM100K's base and two deltas through ShardedBlockStore(n_shards=
+    world) on ``mesh``: the routed key-delta exchange and the routed ledger
+    sync at the store's real size. Returns (ledger, candidate pairs,
+    accepted blocks and counters; each ingest's seconds)."""
+    from repro_torch.streaming import DeltaBlocker, ShardedBlockStore
+    blk = DeltaBlocker(ShardedBlockStore(cfg, n_shards=world, mesh=mesh,
+                                         device=keys.device))
+    secs, warned = caught_capacity(lambda: [
+        synced(lambda: blk.ingest_keys(keys[p], valid[p]))[1] for p in parts])
+    store = blk.store
+    got, acc = store.candidate_pairs(), store.accepted_blocks(min_size=1)
+    return ({"ledger": [store.led_pack, store.led_src],
+             "pairs": [got.a, got.b, got.src_size],
+             "accepted": [acc.key_hi, acc.key_lo, acc.start, acc.size, acc.members],
+             "counters": [store.router.exchange_total,
+                          store.router.exchange_fallback_total,
+                          blk.routed_fallback_total, warned]}, secs)
+
+
+def mesh_rank(rank, world, init, tmp, syn1m_path, dcfg, stream_path, parts, scfg):
+    """One of phase 7c's ranks: gloo on the one card, every launch held
+    against its plain version; the results pickled to ``tmp``."""
+    import pickle
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("data",))
+        out = {}
+        counts = check_launches(lambda: out.update(mesh_cases(mesh, world, "cuda")),
+                                all_kernels())
+        cpu = mesh_cases(mesh, world, "cpu")
+        from repro_torch.core import distributed, hdb
+        keys, valid = torch.load(syn1m_path)
+        keys, valid = distributed.pad_rows(keys.cuda(), valid.cuda(), world)
+        syn1m = {}
+        counts1m = check_launches(lambda: syn1m.update(res=synced(
+            lambda: distributed.distributed_hashed_dynamic_blocking(
+                keys, valid, hdb.HDBConfig(max_block_size=TABLE2_MAX_BLOCK), mesh,
+                dist=dcfg, device="cuda"))), all_kernels())
+        res, secs = syn1m["res"]
+        out["SYN1M hdb"] = (blocking_arrays(res), secs, res.rep_overflow_total, 0)
+        skeys, svalid = torch.load(stream_path)
+        stream = {}
+        counts_s = check_launches(lambda: stream.update(run=mesh_stream100k(
+            mesh, world, skeys.cuda(), svalid.cuda(), parts, scfg)), all_kernels())
+        got, secs = stream["run"]
+        out["STREAM100K store"] = (got, secs, 0, got["counters"][3])
+        counts = {k: counts[k] + counts1m[k] + counts_s[k] for k in counts}
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump({"card": out, "host": cpu, "launches": counts}, f)
+
+
+def all_kernels():
+    """Every kernel wrapper's launch counter, in the JSON line's order."""
     from repro_torch.kernels.cms import cms
     from repro_torch.kernels.hash64 import hash64
     from repro_torch.kernels.match import match as mk
     from repro_torch.kernels.minhash import minhash
     from repro_torch.kernels.pairs import tri as td
     from repro_torch.kernels.sort import radix
+    return [td.KERNEL, radix.PASS_KERNEL, radix.COUNTS_KERNEL, mk.KERNEL,
+            hash64.MIX_KERNEL, hash64.COMBINE_KERNEL, minhash.KERNEL, cms.KERNEL]
+
+
+def mesh_one_rank(kernels, syn1m):
+    """Phase 7b: a one-rank NCCL group in this process. Distributed HDB and
+    the routed dedupe (sampled, at dedup_corpus's 20M budget) on SYN1M,
+    the routed exact dedupe on SYN10K, each timed with the launch counts
+    zeroed just before and read just after, then replayed with every
+    launch held against its plain version. Returns (launch counts, the
+    SYN1M DistConfig, the single-device SYN1M result)."""
+    import tempfile
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import distributed, hdb, pairs
+    _, keys, valid = moved(*syn1m, "cuda")
+    cfg = hdb.HDBConfig(max_block_size=TABLE2_MAX_BLOCK)
+    single, single_s = synced(lambda: hdb.hashed_dynamic_blocking(keys, valid, cfg,
+                                                                  device="cuda"))
+    reps = max(st.n_surviving_oversized + st.n_duplicate_blocks for st in single.stats)
+    dcfg = dist_config(reps)
+    mesh_line("SYN1M hdb single-device", 1, "none", single_s, single.rep_overflow_total, 0)
+    blocks = pairs.build_blocks(single, device="cuda")
+    budget = 20_000_000                                    # dedup_corpus's pair_budget
+    want, want_s = synced(lambda: pairs.dedupe_pairs(blocks, budget=budget, device="cuda"))
+    mesh_line("SYN1M pairs single-device", 1, "none", want_s, 0, 0)
+    spec10k, cfg10k = syn10k_spec()
+    k10, v10 = corpus_keys(spec10k, "cuda", 1)
+    single10k = hdb.hashed_dynamic_blocking(k10, v10, cfg10k, device="cuda")
+    blk10k = pairs.build_blocks(single10k, device="cuda")
+    want10k = pairs.dedupe_pairs(blk10k, budget=blk10k.num_pair_slots + 1, device="cuda")
+
+    def runs(mesh):
+        out = {}
+        out["SYN1M hdb"] = synced(lambda: distributed.distributed_hashed_dynamic_blocking(
+            keys, valid, cfg, mesh, dist=dcfg, device="cuda"))
+        out["SYN1M routed sampled"] = synced(lambda: caught_capacity(
+            lambda: pairs.dedupe_pairs(blocks, budget=budget, backend="distributed",
+                                       mesh=mesh, device="cuda")))
+        out["SYN10K hdb"] = synced(lambda: distributed.distributed_hashed_dynamic_blocking(
+            k10, v10, cfg10k, mesh, device="cuda"))
+        out["SYN10K routed exact"] = synced(lambda: caught_capacity(
+            lambda: pairs.dedupe_pairs(blk10k, budget=blk10k.num_pair_slots + 1,
+                                       backend="distributed", mesh=mesh, device="cuda")))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0,
+                                 world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+            for k in kernels:
+                k.launches = 0
+            timed = runs(mesh)
+            launches = {k.name: k.launches for k in kernels}
+            checked_out = {}
+            checked = check_launches(lambda: checked_out.update(runs(mesh)), kernels)
+        finally:
+            tdist.destroy_process_group()
+    if checked != launches:
+        raise AssertionError(f"mesh 7b: checked launches {checked} != timed {launches}")
+    idle = [name for name in MESH_PATH if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"mesh 7b: kernels never launched: {idle}")
+    for what in ("SYN1M hdb", "SYN10K hdb"):
+        res, secs = timed[what]
+        if any(st.rep_overflow for st in res.stats):
+            raise AssertionError(f"mesh 7b {what}: rep_overflow {res.rep_overflow_total}")
+        if not same_nested(blocking_arrays(res), blocking_arrays(checked_out[what][0])):
+            raise AssertionError(f"mesh 7b {what}: the checked replay differs")
+        missing = hold_to_single(f"mesh 7b {what}", res,
+                                 single if what.startswith("SYN1M") else single10k)
+        mesh_line(what, 1, "nccl", secs, res.rep_overflow_total, 0)
+        print(f"mesh 7b {what}: {len(res.rids)} assignments, {missing} missing against "
+              f"the single device, {len(res.stats)} iterations", flush=True)
+    for what, ref in (("SYN1M routed sampled", want), ("SYN10K routed exact", want10k)):
+        (ps, warned), secs = timed[what]
+        if not (same_nested(pairset_arrays(ps), pairset_arrays(ref)) and same_nested(
+                pairset_arrays(ps), pairset_arrays(checked_out[what][0][0]))):
+            raise AssertionError(f"mesh 7b {what}: PairSet differs from the single device")
+        mesh_line(what, 1, "nccl", secs, 0, warned)
+        print(f"mesh 7b {what}: {len(ps.a)} pairs (exact={ps.exact}, {ps.total_slots} "
+              f"slots) equal the single device bit for bit", flush=True)
+    print(f"mesh 7b: launches={launches}; the replay, every launch bit-identical to its "
+          f"plain version: {checked}; SYN1M DistConfig {dcfg} for {reps} "
+          "over-sized blocks", flush=True)
+    return launches, dcfg, single
+
+
+def same_nested(x, y):
+    from repro_torch.streaming import smoke
+    if isinstance(x, dict):
+        return sorted(x) == sorted(y) and all(same_nested(x[k], y[k]) for k in x)
+    if isinstance(x, tuple):
+        x, y = list(x), list(y)
+    if isinstance(x, list):
+        return len(x) == len(y) and all(same_nested(a, b) for a, b in zip(x, y))
+    return smoke.same_values(x, y)
+
+
+def mesh_four_ranks(syn1m, dcfg, single1m, stream_ref):
+    """Phase 7c: MESH_RANKS gloo ranks on the one card, spawned after the
+    build. Each rank's results must equal every other rank's, its own cpu
+    run (STREAM100K: phase 5b's single store) and the single-device port
+    on cuda. Returns the ranks' launches."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core import hdb, pairs
+    from repro_torch.streaming import BlockStore, smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        syn1m_path = os.path.join(tmp, "syn1m.pt")
+        torch.save((syn1m[1], syn1m[2]), syn1m_path)
+        skeys, svalid, parts, scfg, _, _ = stream_ref
+        stream_path = os.path.join(tmp, "stream100k.pt")
+        torch.save((skeys, svalid), stream_path)
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(MESH_RANKS, f"file://{tmp}/init", tmp,
+                                            syn1m_path, dcfg, stream_path, parts, scfg),
+                           nprocs=MESH_RANKS, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    first = ranks[0]
+    for r, got in enumerate(ranks[1:], 1):
+        for run in ("card", "host"):
+            for case, vals in got[run].items():
+                if not same_nested(vals[0], first[run][case][0]):
+                    raise AssertionError(f"mesh 7c {case} ({run}): rank {r} differs "
+                                         "from rank 0")
+    for case, vals in first["host"].items():
+        if not same_nested(vals[0], first["card"][case][0]):
+            raise AssertionError(f"mesh 7c {case}: cuda differs from cpu")
+    # the single-device port on cuda
+    for name, (spec, cfg) in (("smoke", smoke.smoke_config()), ("SYN10K", syn10k_spec())):
+        keys, valid = corpus_keys(spec, "cuda", MESH_RANKS)
+        single = hdb.hashed_dynamic_blocking(keys, valid, cfg, device="cuda")
+        got = hdb.BlockingResult(*first["card"][f"{name} hdb"][0][:3], stats=[
+            hdb.IterationStats(*row) for row in first["card"][f"{name} hdb"][0][3]],
+            num_records=single.num_records)
+        hold_to_single(f"mesh 7c {name} hdb", got, single)
+        blk = pairs.build_blocks(got, device="cuda")
+        want = pairs.dedupe_pairs(blk, budget=blk.num_pair_slots + 1, device="cuda")
+        if not same_nested(first["card"][f"{name} routed exact"][0], pairset_arrays(want)):
+            raise AssertionError(f"mesh 7c {name}: routed dedupe differs from the "
+                                 "single device")
+    for run, (slack, n, card) in SHARD_RUNS.items():
+        single_store = store_run(BlockStore(hdb.HDBConfig(**SHARD_CFG), device="cuda"),
+                                 n, card)
+        got = first["card"][f"store {run}"][0]
+        if not (same_nested(got["ledger"], single_store["ledger"])
+                and same_nested(got["accepted"], single_store["accepted"])):
+            raise AssertionError(f"mesh 7c store {run}: differs from the single store")
+        fallbacks, warned = got["counters"][1], got["counters"][3]
+        if (run == "overflow") != (fallbacks > 0 and warned > 0):
+            raise AssertionError(f"mesh 7c store {run}: counters {got['counters']}")
+    rids, hi, lo, stats = first["card"]["SYN1M hdb"][0]
+    got = hdb.BlockingResult(rids, hi, lo, [hdb.IterationStats(*row) for row in stats],
+                             single1m.num_records)
+    if got.rep_overflow_total:
+        raise AssertionError(f"mesh 7c SYN1M: rep_overflow {got.rep_overflow_total}")
+    hold_to_single("mesh 7c SYN1M hdb", got, single1m)
+    got, secs, _, _ = first["card"]["STREAM100K store"]
+    want, want_blk = stream_ref[4:]
+    differ = [f for f, x, y in (
+        ("candidate pairs", got["pairs"], [want.a, want.b, want.src_size]),
+        ("accepted blocks", got["accepted"], [want_blk.key_hi, want_blk.key_lo,
+                                              want_blk.start, want_blk.size,
+                                              want_blk.members])) if not same_nested(x, y)]
+    if differ:
+        raise AssertionError(f"mesh 7c STREAM100K store: {differ} differ from phase "
+                             "5b's store")
+    if any(got["counters"][1:]):
+        raise AssertionError(f"mesh 7c STREAM100K store: fell back at the default "
+                             f"slack, counters {got['counters']}")
+    print(f"mesh 7c STREAM100K store (n_shards={MESH_RANKS}, on the mesh, checked): "
+          f"base_build_s={secs[0]:.4f} warm_delta_s={secs[1]:.4f} delta_ingest_s="
+          f"{secs[2]:.4f} ledger_pairs={len(got['ledger'][0])}; exchange_total, "
+          f"exchange_fallback_total, routed_fallback_total, warnings "
+          f"{got['counters']}; candidate pairs and accepted blocks equal phase 5b's "
+          f"single store", flush=True)
+    first["card"]["STREAM100K store"] = (got, secs[2], 0, 0)
+    counters = {run: first["card"][f"store {run}"][0]["counters"] for run in SHARD_RUNS}
+    for case, (_, secs, rep_ovf, route_ovf) in first["card"].items():
+        mesh_line(f"{case} (checked)", MESH_RANKS, "gloo-cuda", secs, rep_ovf, route_ovf)
+    print(f"mesh 7c: {MESH_RANKS} gloo ranks on cuda:0, spawn to join {wall:.1f} s; every "
+          f"rank equal to rank 0, to its cpu run and to the single-device port on cuda; "
+          f"store counters (exchange_total, exchange_fallback_total, "
+          f"routed_fallback_total, warnings) "
+          f"{counters}; "
+          f"launches (rank 0, each held against its plain version): {first['launches']}",
+          flush=True)
+    return first["launches"]
+
+
+def mesh_phase(kernels, syn1m, stream_ref):
+    """Phase 7. Returns the launch counts of the one-rank runs and of rank
+    0 of the four-rank runs."""
+    t_phase = time.perf_counter()
+    launches, dcfg, single1m = mesh_one_rank(kernels, syn1m)
+    torch.cuda.empty_cache()
+    print(f"phase 7b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    gloo_launches = mesh_four_ranks(syn1m, dcfg, single1m, stream_ref)
+    print(f"phase 7: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches, gloo_launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1122,8 +1573,7 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     smoke_pipeline()
-    kernels = [td.KERNEL, radix.PASS_KERNEL, radix.COUNTS_KERNEL, mk.KERNEL,
-               hash64.MIX_KERNEL, hash64.COMBINE_KERNEL, minhash.KERNEL, cms.KERNEL]
+    kernels = all_kernels()
     launches, calls, syn1m = full_size(kernels)
     checks = {"tri_decode": check_tri_decode, "radix_sort": check_radix,
               "radix_digit_counts": check_digit_counts,
@@ -1142,15 +1592,18 @@ def main() -> int:
     syn_launches = syn_stream(kernels)
     torch.cuda.empty_cache()
     sharded_launches = sharded_store(kernels, stream_ref)
-    del stream_ref
     torch.cuda.empty_cache()
     table2_launches = table2(kernels, syn1m)
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_gloo_launches = mesh_phase(kernels, syn1m, stream_ref)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["stream100k_delta_launches"] = stream_launches[row["name"]]
         row["syn_stream_launches"] = syn_launches[row["name"]]
         row["sharded_delta_launches"] = sharded_launches[row["name"]]
         row["table2_syn1m_launches"] = table2_launches[row["name"]]
+        row["mesh_launches"] = mesh_launches[row["name"]]
+        row["mesh_gloo_launches"] = mesh_gloo_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

@@ -329,24 +329,35 @@ def _dedupe_device(blocks: Blocks, slots: Optional[torch.Tensor], total: int,
 
 def dedupe_pairs(blocks: Blocks, budget: int = 50_000_000,
                  backend: str = "auto", sample_seed: int = 0,
-                 device: DeviceLike = None) -> PairSet:
+                 device: DeviceLike = None, mesh=None,
+                 axis_names: Tuple[str, ...] = ("data",),
+                 route_slack: float = 2.0) -> PairSet:
     """RemoveDupePairs: distinct (a, b), keeping the largest source block.
 
     Within ``budget`` total pair slots the result is exact; beyond it the
     engine decodes a seeded uniform sample of ``budget`` slots
     (``exact=False``); ``total_slots`` stays exact. Every backend gives
     the same PairSet as the reference.
+
+    ``backend="distributed"`` is the fingerprint-routed shard-local
+    dedupe over ``mesh`` (``core.distributed.dedupe_pairs_distributed``,
+    ``DECODE_CHUNK`` slots a shard a round); ``mesh=None`` is a one-dim
+    ``("data",)`` mesh over the default process group, which must be
+    initialised.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    if backend == "distributed":
-        raise NotImplementedError(
-            "dedupe_pairs(backend='distributed') is not ported yet: it belongs "
-            "to the mesh and distributed half of ROADMAP A7 (A7b)")
     dev = resolve_device(device)
     total = blocks.num_pair_slots
     if total == 0:
         return _empty_pairset(True, total)
+    if backend == "distributed":
+        from . import distributed as dist_mod
+        if mesh is None:
+            mesh, axis_names = dist_mod.default_mesh(dev), ("data",)
+        return dist_mod.dedupe_pairs_distributed(
+            blocks, mesh, axis_names, budget=budget, chunk_per_shard=DECODE_CHUNK,
+            route_slack=route_slack, sample_seed=sample_seed, device=dev)
     exact = total <= budget
     with record_function("pairs.sample_slots"):
         slots = None if exact else _sample_slots(total, budget, sample_seed, dev)

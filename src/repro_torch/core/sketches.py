@@ -10,10 +10,15 @@ The sketch is linear: the sketch of a union is the sum of its parts'
 sketches, and removing entries subtracts theirs (``cms_fold`` /
 ``cms_subtract``). The streaming store keeps one sketch a level current
 that way; ``np_cms_indices`` gives it the bucket indices on the host.
+
+The Bloom half (``BloomConfig``, ``bloom_*``) serves the distributed
+step: a byte-per-bit uint8 filter over the over-sized keys, OR-merged
+across shards by an elementwise max.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -103,3 +108,59 @@ def np_cms_indices(cfg: CMSConfig, key64) -> np.ndarray:
         h = hashing.np_hash_u64_vec(key64, seed=0xC0DE + j)
         idx[j] = (h & np.uint64(cfg.width - 1)).astype(np.int32)
     return idx
+
+
+# ---------------------------------------------------------------------------
+# Bloom filter
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BloomConfig:
+    """Byte-per-bit Bloom filter (merge = elementwise max / OR).
+
+    Sizing follows m = -n ln p / (ln 2)^2, k = (m/n) ln 2.
+    """
+
+    num_slots: int = 1 << 22
+    num_hashes: int = 8
+
+    @staticmethod
+    def for_capacity(capacity: int, fpr: float = 1e-8) -> "BloomConfig":
+        capacity = max(capacity, 1)
+        m = int(-capacity * math.log(fpr) / (math.log(2) ** 2))
+        m = 1 << max(10, math.ceil(math.log2(m)))
+        k = max(1, round(m / capacity * math.log(2)))
+        return BloomConfig(num_slots=m, num_hashes=min(k, 30))
+
+
+def bloom_positions(cfg: BloomConfig, key: torch.Tensor) -> torch.Tensor:
+    """(num_hashes, *shape) int64 positions by Kirsch-Mitzenmacher double
+    hashing on the low 32 bits of two seeded hashes (the hash64 mix
+    kernel on the card). The table is a power of two no larger than
+    2**32, so masking the int64 sum equals the reference's uint32 sum
+    masked."""
+    h1 = hashing.hash_u64(key, seed=0xB100) & 0xFFFFFFFF
+    # odd => full-period stepping over a power-of-2 table
+    h2 = (hashing.hash_u64(key, seed=0xB101) & 0xFFFFFFFF) | 1
+    mask = cfg.num_slots - 1
+    return torch.stack([(h1 + i * h2) & mask for i in range(cfg.num_hashes)], 0)
+
+
+def bloom_build(cfg: BloomConfig, key: torch.Tensor, mask: torch.Tensor
+                ) -> torch.Tensor:
+    """uint8 filter of the keys where ``mask`` holds: a scatter-max of
+    the 0/1 mask, which sets each masked key's positions to 1."""
+    bits = torch.zeros(cfg.num_slots, dtype=torch.uint8, device=key.device)
+    bits[bloom_positions(cfg, key[mask]).reshape(-1)] = 1
+    return bits
+
+
+def bloom_query(cfg: BloomConfig, bits: torch.Tensor, key: torch.Tensor
+                ) -> torch.Tensor:
+    """True where every position of the key is set (no false negatives)."""
+    return (bits[bloom_positions(cfg, key)] > 0).all(dim=0)
+
+
+def bloom_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(a, b)

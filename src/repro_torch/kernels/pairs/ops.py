@@ -14,6 +14,9 @@ owns C(n, 2) consecutive slots of the canonical enumeration (``ref.py``).
   first-of-(a, b)-run winner mask. Invalid lanes are the all-ones
   sentinel, which sorts last in unsigned order.
 
+``pair_route_owner`` gives each pair its shard in the routed
+distributed dedupe.
+
 int32 contract (kept from the reference so outputs and warnings agree):
 rids and the slot range are < 2**31, block sizes <= MAX_BLOCK_N; the
 packed sort word also needs rids < 2**PACK_RID_BITS.
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core import u64
+from ...core import hashing, u64
 from ..sort import ops as sort_ops
 from .tri import tri_decode
 
@@ -31,6 +34,8 @@ PACK_RID_BITS = 23
 _PACK_SIZE_BITS = 16
 _SIZE_MASK = (1 << _PACK_SIZE_BITS) - 1  # == MAX_BLOCK_N
 _RID_MASK = (1 << PACK_RID_BITS) - 1
+# pair-fingerprint routing seed (the reference's ROUTE_SEED)
+ROUTE_SEED = 0x9A12
 
 
 def _decode(start, members, block, local, n, valid, steps):
@@ -82,6 +87,21 @@ def pack_sort_words(a: torch.Tensor, b: torch.Tensor, src_size: torch.Tensor,
     w = (a.to(torch.int64) << (PACK_RID_BITS + _PACK_SIZE_BITS)) \
         | (b.to(torch.int64) << _PACK_SIZE_BITS) | inv
     return torch.where(valid, w, u64.SENTINEL)
+
+
+def pair_route_owner(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor,
+                     n_shards: int) -> torch.Tensor:
+    """Owning shard of pair (a, b) in the fingerprint-routed dedupe.
+
+    Hashes only the 46-bit run id ``(a << 23) | b`` (the sort word
+    without its size bits), so every occurrence of a pair lands on one
+    shard whichever block produced it; the low 32 bits of the hash (the
+    hash64 mix kernel on the card) modulo ``n_shards``. Invalid lanes get
+    ``n_shards``, which ``route_buckets`` drops.
+    """
+    run = (a.to(torch.int64) << PACK_RID_BITS) | b.to(torch.int64)
+    owner = u64.lo32(hashing.hash_u64(run, seed=ROUTE_SEED)) % n_shards
+    return torch.where(valid, owner, n_shards)
 
 
 def radix_passes_for(max_rid: int) -> int:

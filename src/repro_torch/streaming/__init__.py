@@ -18,8 +18,8 @@ to what they change, not to the corpus. Two operations:
   matcher scoring of each ingest's new pairs.
 
 - ``shard.ShardedBlockStore``: the same surface over N fingerprint-routed
-  ``StoreShard``s (``ShardRouter``, host owner grouping); a mesh is not
-  ported yet.
+  ``StoreShard``s (``ShardRouter``: the host owner grouping, or on a
+  ``DeviceMesh`` the routed key-delta exchange and ledger sync).
 """
 from .store import BlockStore, LevelState  # noqa: F401
 from .delta import DeltaBlocker, IngestReport, QueryResult  # noqa: F401

@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +47,7 @@ from ..core import hashing
 from ..core import hdb as hdb_mod
 from ..core import pairs as pairs_mod
 from ..core import sketches, u64
+from ..core.hdb import RepCapacityWarning
 from .store import (INT32_MAX, SENTINEL_U64, BlockStore, LevelState,
                     gather_segments, pack_pair, reduce_by_key,
                     searchsorted_mask, unpack_pair)
@@ -126,25 +128,25 @@ class DeltaBlocker:
     """Runs the incremental iteration loop against one BlockStore, on the
     store's device.
 
-    ``store`` is a ``BlockStore`` or a meshless ``ShardedBlockStore``
-    (the same surface). ``sort_backend`` accepts ``"auto"`` only: the
-    port's pair engine picks its dedupe sort from the data. A store on a
-    mesh (the routed ledger sync) is not ported yet;
-    ``routed_fallback_total`` stays 0.
+    ``store`` is a ``BlockStore`` or a ``ShardedBlockStore`` (the same
+    surface). ``sort_backend`` accepts ``"auto"`` only: the port's pair
+    engine picks its dedupe sort from the data. When the store carries a
+    mesh (``store.mesh``, ``store.axis_names``), every ledger sync's exact
+    pair dedupe runs through ``core.distributed.dedupe_pairs_distributed``
+    over it, and each fallback to the single-device engine is warned
+    again with streaming context and counted in ``routed_fallback_total``.
     """
 
     def __init__(self, store: BlockStore, sort_backend: str = "auto"):
         if sort_backend not in SORT_BACKENDS:
             raise ValueError(f"sort_backend must be one of {SORT_BACKENDS}, "
                              f"got {sort_backend!r}")
-        if getattr(store, "mesh", None) is not None:
-            raise NotImplementedError(
-                "a store on a mesh (routed ledger sync) is not ported yet: "
-                "it belongs to the mesh and distributed half of ROADMAP A7 (A7b)")
         self.store = store
         self.cfg = store.cfg
         self.device = store.device
         self.sort_backend = sort_backend
+        self.mesh = getattr(store, "mesh", None)
+        self.mesh_axis_names = tuple(getattr(store, "axis_names", ("data",)))
         self.routed_fallback_total = 0
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
@@ -473,9 +475,33 @@ class DeltaBlocker:
 
     def _dedupe_blocks(self, blk: pairs_mod.Blocks,
                        budget: int) -> pairs_mod.PairSet:
-        """One exact pair dedupe on the store's device."""
-        return pairs_mod.dedupe_pairs(blk, budget=budget, backend="auto",
-                                      device=self.device)
+        """One exact pair dedupe on the store's device, routed over the
+        store's mesh if it has one.
+
+        ``dedupe_pairs_distributed`` is lossless on its own (it falls back
+        to the single-device engine on a bucket overflow or outside its
+        contract); this makes every such fallback loud: warned again with
+        streaming context and counted in ``routed_fallback_total``.
+        """
+        if self.mesh is None:
+            return pairs_mod.dedupe_pairs(blk, budget=budget, backend="auto",
+                                          device=self.device)
+        from ..core import distributed as dist_mod
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ps = dist_mod.dedupe_pairs_distributed(
+                blk, self.mesh, self.mesh_axis_names, budget=budget,
+                device=self.device)
+        for w in caught:
+            if issubclass(w.category, (RepCapacityWarning, RuntimeWarning)):
+                self.routed_fallback_total += 1
+                warnings.warn(
+                    "[streaming] routed ledger sync fell back to the "
+                    f"single-device pair engine: {w.message}",
+                    w.category, stacklevel=3)
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+        return ps
 
     def _sync_pairs(self, add_k, add_r, ret_k, ret_r):
         """Apply assignment deltas; return ((a, b, src) added, (a, b)

@@ -1,6 +1,6 @@
 """Fingerprint-sharded BlockStore: N key-partitioned slices, one surface.
 
-Port of the meshless path of the JAX package's ``streaming/shard.py``.
+Port of the JAX package's ``streaming/shard.py``.
 The single ``BlockStore`` keeps one ``LevelKeys`` (sketch + key table)
 per level plus one ``BlockCsr`` and one ``PairLedger``. This module
 partitions all three by fingerprint over ``core.routing``'s owner rule
@@ -21,44 +21,98 @@ and exposes the ``BlockStore`` surface the delta blocker uses:
 
 Shard key sets are disjoint, so every merged view (``accepted_blocks``,
 ``candidate_pairs``, splice and pair deltas) is a re-sorted
-concatenation, equal to the single store's. Without a mesh the key-delta
-exchange is the host owner grouping; ``n_shards=1`` is the single store.
-A mesh (the routed exchange and ledger sync) belongs to the mesh and
-distributed half of ROADMAP A7 (A7b) and raises ``NotImplementedError``.
+concatenation, equal to the single store's. ``n_shards=1`` is the single
+store. Without a mesh the key-delta exchange is the host owner grouping.
+With a mesh (a ``DeviceMesh`` whose ``axis_names`` span ``n_shards``
+ranks) every rank runs the same store (SPMD, the host loop replicated): each
+level's aggregated key deltas are split over the ranks, routed into
+fixed-capacity buckets by key owner (``core/routing.route_buckets``) and
+swapped with one ``all_to_all_single``; the received buckets are
+gathered so every rank's store takes the same update, and the delta
+blocker syncs the ledger through ``dedupe_pairs_distributed``. A bucket
+overflow warns (``RepCapacityWarning``), counts
+``exchange_fallback_total`` and takes the host grouping: lossless.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import warnings
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..core import hdb as hdb_mod
 from ..core import pairs as pairs_mod
-from ..core import routing, sketches
+from ..core import routing, sketches, u64
+from ..core.hdb import RepCapacityWarning
 from ..device import DeviceLike, resolve_device
+from ..distributed import sharding
 from .store import (BlockCsr, LevelKeys, LevelState, PairLedger, cms_gather,
                     merge_blocks, unpack_pair)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded store on a mesh (the routed key-delta exchange and "
-            "ledger sync) is not ported yet: it belongs to the mesh and "
-            "distributed half of ROADMAP A7 (A7b)")
+def _ceil_pow2(n: int, floor: int = 256) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def keytab_exchange(sh: sharding.Shards, key: torch.Tensor, cnt: torch.Tensor,
+                    fp: torch.Tensor, cap: int):
+    """One rank's part of the routed key-table delta exchange.
+
+    ``key``, ``cnt``, ``fp`` are this rank's row slice of the padded delta
+    (sentinel keys pad it). Each live entry goes into its key owner's
+    fixed-``cap`` bucket, the buckets are swapped with one
+    ``all_to_all_single``, and every rank's received buckets are gathered.
+    Returns ``(key, cnt, fp)`` of shape ``(n_shards, n_shards * cap)``,
+    row ``d`` holding what shard ``d`` received, and the overflow summed
+    over the shards.
+    """
+    n = sh.n_shards
+    owner = routing.owner_u64(key, n, routing.KEY_OWNER_SEED,
+                              live=~u64.is_sentinel(key))
+    bkey, (bcnt, bfp), overflow = routing.route_buckets(key, [cnt, fp], owner, n, cap)
+    tdist.all_reduce(overflow, group=sh.group)
+    out = []
+    for b in routing.exchange(sh.group, bkey, bcnt, bfp):
+        got = torch.empty((n * n, cap), dtype=b.dtype, device=b.device)
+        tdist.all_gather_into_tensor(got, b, group=sh.group)
+        out.append(got.view(n, n * cap))
+    return tuple(out), int(overflow)
 
 
 class ShardRouter:
-    """Owner computation and the (host) key-delta exchange."""
+    """Owner computation + the routed key-delta exchange on a mesh.
 
-    def __init__(self, n_shards: int):
+    Without a mesh the exchange is the host owner grouping, which is also
+    the lossless overflow fallback, and no device is used. With a mesh it
+    stages the deltas through ``route_buckets`` and one
+    ``all_to_all_single`` a call, on ``device`` (``None`` means CUDA).
+    """
+
+    def __init__(self, n_shards: int, mesh=None,
+                 axis_names: Sequence[str] = ("data",),
+                 route_slack: float = 2.0, device: DeviceLike = None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.n_shards = n_shards
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names)
+        self.route_slack = route_slack
+        self.device = None if mesh is None else resolve_device(device)
         self.exchange_total = 0
-        # the host grouping never overflows; the mesh exchange's count
         self.exchange_fallback_total = 0
+        self._shards: Optional[sharding.Shards] = None
+        if mesh is not None:
+            size = sharding.axis_size(mesh, self.axis_names)
+            if size != n_shards:
+                raise ValueError(
+                    f"mesh axes {self.axis_names} have {size} ranks but the "
+                    f"store has {n_shards} shards: they must match (one "
+                    "shard a rank)")
 
     def key_owner(self, key64: np.ndarray) -> np.ndarray:
         return routing.np_owner_u64(key64, self.n_shards,
@@ -78,6 +132,45 @@ class ShardRouter:
         (``reduce_by_key`` output), and grouping keeps its order.
         """
         self.exchange_total += 1
+        if self.mesh is None or self.n_shards == 1 or len(d_key) == 0:
+            return self._group_host(d_key, d_cnt, d_fp)
+        n = self.n_shards
+        rows = _ceil_pow2(-(-len(d_key) // n), floor=64)
+        cap = max(8, int(np.ceil(rows / n * self.route_slack)))
+        if self._shards is None:
+            self._shards = sharding.shards(self.mesh, self.axis_names)
+        sh = self._shards
+        mine = slice(sh.shard * rows, (sh.shard + 1) * rows)
+
+        def padded(x, fill, dtype):
+            buf = np.full(n * rows, fill, dtype)
+            buf[:len(x)] = x
+            return torch.from_numpy(buf[mine].copy()).to(self.device)
+
+        # per-ingest count deltas are bounded by the micro-batch's entry
+        # count, so int32 lanes are exact (the table itself stays int64)
+        (bkey, bcnt, bfp), overflow = keytab_exchange(
+            sh, padded(d_key.astype(np.uint64).view(np.int64), u64.SENTINEL, np.int64),
+            padded(d_cnt, 0, np.int32),
+            padded(d_fp.astype(np.uint64).view(np.int64), 0, np.int64), cap)
+        if overflow:
+            warnings.warn(
+                f"sharded key-table exchange overflowed a bucket (cap {cap}, "
+                f"slack {self.route_slack}); falling back to host grouping "
+                "for this delta — raise route_slack to keep the routed path",
+                RepCapacityWarning, stacklevel=3)
+            self.exchange_fallback_total += 1
+            return self._group_host(d_key, d_cnt, d_fp)
+        out = []
+        for key, c, fp in zip(u64.to_numpy_u64(bkey), bcnt.cpu().numpy(),
+                              u64.to_numpy_u64(bfp)):
+            live = key != np.uint64(u64.MASK64)
+            order = np.argsort(key[live])
+            out.append((key[live][order], c[live][order].astype(np.int64),
+                        fp[live][order]))
+        return out
+
+    def _group_host(self, d_key, d_cnt, d_fp):
         owner = self.key_owner(d_key)
         return [(d_key[m], d_cnt[m], d_fp[m])
                 for m in (owner == s for s in range(self.n_shards))]
@@ -232,17 +325,24 @@ class ShardedBlockStore:
     ``StreamingEngine``: every merged view equals the single store's
     after the same ingest sequence. ``device`` holds the sketch slices
     and runs the delta blocker's device steps (``None`` means CUDA).
-    ``mesh`` is not ported yet and raises.
+    ``mesh`` and ``axis_names`` attach the routed key-delta exchange (one
+    ``all_to_all_single`` a level an ingest, buckets sized by
+    ``route_slack``) and tell ``DeltaBlocker`` to sync the ledger through
+    ``dedupe_pairs_distributed``; every rank of the mesh runs the same
+    ingests.
     """
 
     def __init__(self, cfg: hdb_mod.HDBConfig = hdb_mod.HDBConfig(),
-                 n_shards: int = 1, mesh=None, device: DeviceLike = None):
-        _no_mesh(mesh)
+                 n_shards: int = 1, mesh=None,
+                 axis_names: Sequence[str] = ("data",),
+                 route_slack: float = 2.0, device: DeviceLike = None):
         self.cfg = cfg
         self.n_shards = n_shards
-        self.mesh = None
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names)
         self.device = resolve_device(device)
-        self.router = ShardRouter(n_shards)
+        self.router = ShardRouter(n_shards, mesh=mesh, axis_names=axis_names,
+                                  route_slack=route_slack, device=self.device)
         self.shards = [StoreShard(cfg, s, self.device) for s in range(n_shards)]
         self.num_records = 0
         self.levels: List[Optional[LevelState]] = [None] * cfg.max_iterations

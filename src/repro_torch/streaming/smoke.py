@@ -6,7 +6,9 @@ through ``StreamingEngine`` (fused matcher, one query) and through
 ``DedupPipeline.extend`` with both match back ends, and returns what each
 produced; ``sharded_run(device, n_shards)`` ingests it through
 ``StreamingEngine(n_shards=n_shards)``; ``differing(a, b)`` names the
-results in which two runs differ.
+results in which two runs differ. ``smoke_config()`` is the corpus's
+spec and HDB config; ``scenario_keys`` draws the sharded-store
+scenario's random keys.
 """
 from __future__ import annotations
 
@@ -15,18 +17,47 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..core import hdb
+import torch
+
+from ..core import blocks, hdb, u64
 from ..data import matcher, pipeline, synthetic
+from ..device import DeviceLike
 from .engine import RecordBatch, StreamingEngine
+
+
+def smoke_config():
+    """(spec, HDB config) of the 150-entity smoke corpus."""
+    return (synthetic.SyntheticSpec(num_entities=150, seed=7),
+            hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12))
+
+
+def scenario_key64(rng: np.random.Generator, n: int, k: int, card: int,
+                   pvalid: float = 0.85):
+    """The sharded-store scenario's draws: ``(n, k)`` uint64 keys at
+    cardinality ``card`` (all-ones where invalid, before the row dedupe)
+    and the valid mask."""
+    k64 = (rng.integers(0, card, (n, k)).astype(np.uint64)
+           * np.uint64(0x9E3779B97F4A7C15))
+    valid = rng.random((n, k)) < pvalid
+    k64[~valid] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    return k64, valid
+
+
+def scenario_keys(rng: np.random.Generator, n: int, k: int, card: int,
+                  device: DeviceLike):
+    """``scenario_key64``'s draws row-deduped on ``device``: int64 keys
+    and the valid mask."""
+    k64, valid = scenario_key64(rng, n, k, card)
+    return blocks.dedupe_row_keys(u64.from_numpy_u64(k64, device),
+                                  torch.from_numpy(valid).to(device))
 
 
 def _smoke_engine(device, n_shards: int = 1):
     """The smoke corpus ingested in three parts through StreamingEngine
     (fused matcher), then one query. Returns (corpus, cfg, parts, engine,
     ingest results, probe results)."""
-    corpus = synthetic.generate(synthetic.SyntheticSpec(num_entities=150, seed=7),
-                                device=device)
-    cfg = hdb.HDBConfig(max_block_size=50, max_iterations=6, cms_width=1 << 12)
+    spec, cfg = smoke_config()
+    corpus = synthetic.generate(spec, device=device)
     parts = np.array_split(np.arange(corpus.num_records), 3)
     eng = StreamingEngine(corpus.blocking, cfg, matcher_cfg=matcher.MatcherConfig(),
                           match_backend="auto", n_shards=n_shards, device=device)

@@ -392,3 +392,56 @@ def test_evaluate_and_meta_blocking_cuda_equal_cpu(dev):
     assert np.array_equal(ga, ca) and np.array_equal(gb, cb) and len(ga) > 0
     assert gm == cm
     assert np.array_equal(gcov, ccov) and gcov.any()
+
+
+@pytest.fixture
+def one_rank_mesh(dev, tmp_path):
+    """A one-rank group in this process (NCCL for CUDA tensors, gloo for
+    CPU ones) and its one-dim mesh."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    tdist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{tmp_path}/init",
+                             rank=0, world_size=1)
+    try:
+        yield DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_one_rank_distributed_hdb_and_routed_dedupe_cuda_equal_cpu(dev, one_rank_mesh):
+    """Distributed HDB and the routed dedupe (exact and sampled) on a small
+    corpus over a one-rank NCCL mesh, against the same calls on the CPU;
+    every kernel of the path launches."""
+    from repro_torch.core import blocks, distributed, hdb, pairs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.cms import cms
+    from repro_torch.kernels.hash64 import hash64
+    from repro_torch.kernels.pairs import tri as td
+    from repro_torch.kernels.sort import radix
+    path = (cms.KERNEL, hash64.MIX_KERNEL, hash64.COMBINE_KERNEL, td.KERNEL,
+            radix.PASS_KERNEL, radix.COUNTS_KERNEL)
+    cfg = hdb.HDBConfig(max_block_size=40, max_iterations=5)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        before = [k.launches for k in path]
+        corpus = synthetic.generate(synthetic.SyntheticSpec(num_entities=900, seed=11),
+                                    device=d)
+        keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
+        res = distributed.distributed_hashed_dynamic_blocking(
+            keys, valid, cfg, one_rank_mesh, device=d)
+        blk = pairs.build_blocks(res, device=d)
+        ps = [pairs.dedupe_pairs(blk, budget=budget, backend="distributed",
+                                 mesh=one_rank_mesh, device=d)
+              for budget in (blk.num_pair_slots + 1, blk.num_pair_slots // 3)]
+        if d.type == "cuda":
+            assert all(k.launches > b for k, b in zip(path, before))
+        out[d.type] = (res, ps)
+    (gres, gps), (cres, cps) = out["cuda"], out["cpu"]
+    for f in ("rids", "key_hi", "key_lo"):
+        assert np.array_equal(getattr(gres, f), getattr(cres, f))
+    assert gres.stats == cres.stats and len(gres.rids) > 1000
+    for g, c in zip(gps, cps):
+        for f in ("a", "b", "src_size"):
+            assert np.array_equal(getattr(g, f), getattr(c, f))
+        assert (g.exact, g.total_slots) == (c.exact, c.total_slots)
+    assert gps[0].exact and not gps[1].exact

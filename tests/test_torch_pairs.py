@@ -217,7 +217,8 @@ def test_empty_and_distributed():
     ps = pairs.dedupe_pairs(empty, device="cpu")
     assert ps.exact and ps.total_slots == 0 and len(ps.a) == 0
     _, tr = _result(5)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # the routed backend needs a process group; none is initialised here
+    with pytest.raises(ValueError, match="init_process_group"):
         pairs.dedupe_pairs(pairs.build_blocks(tr, device="cpu"), backend="distributed",
                            device="cpu")
     with pytest.raises(ValueError):

@@ -8,6 +8,8 @@ key layouts, seeds and configurations) go through ``repro.streaming`` and
 exact equality of every report, ledger entry, block, query result, table
 row, sketch count and byte gauge.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -220,8 +222,9 @@ def test_owner_rule_and_router_equal_reference():
 
 def test_mesh_raises_and_shards_are_containers():
     cfg = hdb.HDBConfig(**_cfg(8))
-    with pytest.raises(NotImplementedError, match="mesh and distributed half"):
-        ShardedBlockStore(cfg, n_shards=4, mesh=object(), device="cpu")
+    eight_ranks = types.SimpleNamespace(mesh_dim_names=("data",), size=lambda dim: 8)
+    with pytest.raises(ValueError, match="must match"):
+        ShardedBlockStore(cfg, n_shards=4, mesh=eight_ranks, device="cpu")
     sh = StoreShard(cfg, 2, torch.device("cpu"))
     assert sh.total_bytes == 0 and sh.num_keys == 0
     assert sh.keys_at(1) is sh.keys_at(1)

@@ -9,6 +9,7 @@ Tolerance: exact equality of every pair, provenance, report count, label,
 score and query result.
 """
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +35,7 @@ from repro_torch.core import blocks, hashing, hdb, pairs, sketches, u64  # noqa:
 from repro_torch.data import components, matcher, pipeline, synthetic  # noqa: E402
 from repro_torch.serving import scheduler  # noqa: E402
 from repro_torch.streaming import (BlockStore, DeltaBlocker, RecordBatch,  # noqa: E402
-                                   ShardedBlockStore, StreamingEngine)
+                                   ShardRouter, ShardedBlockStore, StreamingEngine)
 from repro_torch.streaming.store import LevelKeys, pack_key64  # noqa: E402
 
 
@@ -480,12 +481,18 @@ def test_entry_points_refuse_what_is_not_ported(monkeypatch):
         DeltaBlocker(store, sort_backend="radix")
     with pytest.raises(ValueError, match="sort_backend"):
         DeltaBlocker(store, sort_backend="comparator")
-    # the meshless sharded store is ported; a mesh is not
+    # the sharded store is ported, on a mesh too: a mesh of another size
+    # than the shard count is refused, and the blocker takes the store's mesh
     assert isinstance(StreamingEngine({}, cfg, n_shards=2, device="cpu").store,
                       ShardedBlockStore)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ShardedBlockStore(cfg, n_shards=2, mesh=object(), device="cpu")
-    store.mesh = object()
-    with pytest.raises(NotImplementedError, match="A7"):
-        DeltaBlocker(store)
+    eight_ranks = types.SimpleNamespace(mesh_dim_names=("data",), size=lambda dim: 8)
+    with pytest.raises(ValueError, match="must match"):
+        ShardedBlockStore(cfg, n_shards=2, mesh=eight_ranks, device="cpu")
+    # a router on a mesh stages its exchange on the card unless told otherwise
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardRouter(8, mesh=eight_ranks)
+    assert ShardRouter(8, mesh=eight_ranks, device="cpu").device.type == "cpu"
+    assert ShardRouter(8).device is None
+    store.mesh = eight_ranks
+    assert DeltaBlocker(store).mesh is eight_ranks
     assert DeltaBlocker(BlockStore(cfg, device="cpu")).routed_fallback_total == 0
