@@ -92,14 +92,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       launch held against its plain version; each rank equal to every
       other, to its cpu run and to the single-device port on cuda.
    Each run prints ``mesh,<what>,<ranks>,<backend>,<seconds>,<rep_overflow>,
-   <route_overflow>``.
+   <route_overflow>``;
+8. serving (``repro_torch.serving``):
+   a. the DedupeService at benchmarks/bench_serving.py's defaults: a
+      50,000-record store of the streaming bench's key layout built
+      through the write lane (launch counts zeroed before and read after),
+      one warm-up round a client batch size, then 2,048 probe rows at
+      batch sizes 1, 8 and 64 (launch counts zeroed before and read after
+      each timed pass), each printing ``serving,b=<b>,<qps>,<p50_ms>,
+      <p99_ms>,<occupancy>,<batches>`` from the service's own histograms.
+      The walk shapes (``probe_jit_cache_sizes``) and the bucket shapes
+      must not grow after the warm-up; every response ``ok``; every row
+      equal across batch sizes and to a solo ``query_keys`` on the card;
+      batch size 8 replayed with every launch held against its plain
+      version, then profiled; a 4-shard tenant (its ingest checked launch
+      by launch) answering every row equally; the same service on the cpu
+      answering the first 256 rows equally; ``refresh_clusters`` on the
+      card equal to the cpu run;
+   b. the LM ServingEngine: tinyllama-1.1b as published (bfloat16,
+      weights from a seeded generator on the card; its parameter count
+      checked on the meta device), 16 requests of 2-32 prompt tokens over
+      8 slots, 32 new tokens each, max_len 1024, timed with CUDA events;
+      ten more decode steps profiled; then the same widths at 2 layers in float32 (TF32 off) on cuda and
+      cpu: equal tokens, first-step logits within 1e-3.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` from the SYN1M HDB run; ``stream100k_delta_launches``,
 ``syn_stream_launches`` and ``sharded_delta_launches`` from phase 5,
 ``table2_syn1m_launches`` from phase 6, ``mesh_launches`` from phase 7b's
-timed runs and ``mesh_gloo_launches`` from rank 0 of phase 7c); the last
-line is
+timed runs, ``mesh_gloo_launches`` from rank 0 of phase 7c,
+``serving_probe_launches`` summed over phase 8a's three timed passes and
+``serving_ingest_launches`` from its write-lane build); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
@@ -166,7 +189,7 @@ SYN_STREAM_DELTAS = 10
 TRI_EXTREME_SLOTS = 1 << 20
 
 
-RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.", "stream.")
+RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.", "stream.", "serve.")
 
 
 def _kernel_events(prof):
@@ -1556,6 +1579,270 @@ def mesh_phase(kernels, syn1m, stream_ref):
     return launches, gloo_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving (the DedupeService and the LM ServingEngine)
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_serving.py's workload at its defaults: a 50,000-record
+# store of the streaming bench's key layout, 2,048 probe rows at client
+# batch sizes 1, 8 and 64
+SERVE_RECORDS = 50_000
+SERVE_PROBES = 2_048
+SERVE_BATCH_SIZES = (1, 8, 64)
+# probe rows also answered by the same service on the cpu
+SERVE_CPU_ROWS = 256
+# the batch size replayed with every launch checked, and profiled
+SERVE_CHECKED_BATCH = 8
+# kernels the probe walk and the write lane must launch (the walk's
+# intersections; the ingest's sketch folds, intersections and ledger sync)
+SERVE_PROBE_PATH = ("combine64",)
+SERVE_INGEST_PATH = ("cms_update", "combine64", "tri_decode", "radix_sort",
+                     "radix_digit_counts")
+# the LM engine: tinyllama-1.1b as published, 16 requests of 2-32 prompt
+# tokens over 8 slots, 32 new tokens each; admission prefills one token a
+# step, so the shared pos stays well under max_len
+LM_ARCH = "tinyllama-1.1b"
+LM_SLOTS = 8
+LM_REQUESTS = 16
+LM_MAX_NEW = 32
+LM_MAX_LEN = 1024
+# the cuda == cpu check: the same widths at 2 layers in float32, TF32 off;
+# first-step logits within 1e-3 (float32 products summed in another order
+# over d_model 2048 and d_ff 5632)
+LM_CHECK_LAYERS = 2
+LM_LOGIT_ATOL = 1e-3
+
+
+def serve_answers(svc):
+    """The service's probe responses in uid order: (statuses, the
+    comparable arrays of every answered row)."""
+    from repro_torch.serving import smoke as serve_smoke
+    resp = sorted(svc.probe_responses, key=lambda r: r.uid)
+    rows = [row for r in resp for row in serve_smoke.result_arrays(r.results)]
+    return [r.status for r in resp], rows
+
+
+def serving_service(kernels):
+    """Phase 8a. The store built through the write lane (launches counted),
+    a warm-up round a batch size, then the timed pass of every batch size
+    (launch counts zeroed before and read after each); returns the summed
+    probe launches and the ingest's."""
+    from repro_torch.core import hdb, u64
+    from repro_torch.serving import DedupeService, ServiceConfig
+    from repro_torch.serving import smoke as serve_smoke
+    from repro_torch.streaming.delta import probe_jit_cache_sizes
+    t_phase = time.perf_counter()
+    cfg = hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 16)
+    base = ServiceConfig(probe_slots=64, ingest_slots=1 << 20, max_read_queue=1 << 20,
+                         max_write_queue=64)
+    n, p = SERVE_RECORDS, SERVE_PROBES
+    keys, valid = stream_keys(0, n + p, n + p)
+    keys, valid = u64.to_numpy_u64(keys), valid.cpu().numpy()
+    probe_k, probe_v = keys[n:], valid[n:]
+
+    def service(device, n_shards=1):
+        svc = DedupeService(cfg, dataclasses.replace(base, n_shards=n_shards),
+                            device=device)
+        svc.add_tenant("t")
+        svc.submit_ingest("t", keys[:n], valid[:n])
+        return svc
+
+    def probes(svc, b, rows=p):
+        for off in range(0, rows, b):
+            svc.submit_probe("t", probe_k[off:off + b], probe_v[off:off + b])
+        svc.run()
+
+    svc = service("cuda")
+    for k in kernels:
+        k.launches = 0
+    _, build_s = synced(svc.run)
+    ingest_launches = {k.name: k.launches for k in kernels}
+    store = svc.tenant("t").store
+    print(f"serving: a store of {n} records through the write lane, "
+          f"{len(store.led_pack)} candidate pairs, build_s={build_s:.4f} "
+          f"launches={ingest_launches}", flush=True)
+    idle = [name for name in SERVE_INGEST_PATH if ingest_launches[name] == 0]
+    if idle:
+        raise AssertionError(f"serving: the write lane never launched {idle}")
+
+    for b in SERVE_BATCH_SIZES:
+        synced(lambda: probes(svc, b, rows=b))
+    shapes_warm = probe_jit_cache_sizes()
+    compiles_warm = svc.snapshot()["counters"]["bucket_compiles_total"]
+    print(f"serving: warm-up, {compiles_warm} bucket shapes, walk shapes "
+          f"{shapes_warm}", flush=True)
+    answers, per_batch, new_buckets = {}, {}, 0
+    for b in SERVE_BATCH_SIZES:
+        svc.metrics.reset()
+        svc.probe_responses.clear()
+        for k in kernels:
+            k.launches = 0
+        _, secs = synced(lambda: probes(svc, b))
+        per_batch[b] = {k.name: k.launches for k in kernels}
+        snap = svc.snapshot()
+        # metrics.reset() zeroed the counter: any count is a new shape
+        new_buckets += snap["counters"]["bucket_compiles_total"]
+        rows = snap["counters"]["probe_rows_total"]
+        lat = snap["histograms"]["probe_latency_s"]
+        occ = snap["histograms"]["batch_occupancy"]
+        print(f"serving,b={b},{rows / secs},{lat['p50'] * 1e3},{lat['p99'] * 1e3},"
+              f"{occ['mean']},{snap['counters']['probe_batches_total']}", flush=True)
+        statuses, answers[b] = serve_answers(svc)
+        if rows != p or len(answers[b]) != p or set(statuses) != {"ok"}:
+            raise AssertionError(f"serving b={b}: {rows} rows served of {p}, "
+                                 f"statuses {set(statuses)}")
+    shapes_end = probe_jit_cache_sizes()
+    if shapes_end != shapes_warm or new_buckets:
+        raise AssertionError(f"serving: shapes grew after the warm-up: walk "
+                             f"{shapes_warm} -> {shapes_end}, {new_buckets} new "
+                             "bucket shapes")
+    probe_launches = {k.name: sum(c[k.name] for c in per_batch.values()) for k in kernels}
+    idle = [name for name in SERVE_PROBE_PATH if probe_launches[name] == 0]
+    if idle:
+        raise AssertionError(f"serving: the probe walk never launched {idle}")
+    print(f"serving: walk shapes {shapes_end} and no new bucket shape after every "
+          f"batch size (unchanged since the warm-up); probe launches by batch size "
+          f"{per_batch}", flush=True)
+
+    want = answers[SERVE_BATCH_SIZES[0]]
+    if any(not serve_smoke.same(answers[b], want) for b in SERVE_BATCH_SIZES):
+        raise AssertionError("serving: answers differ between batch sizes")
+    blocker = svc.tenant("t").blocker
+
+    def solo():
+        for i in range(p):
+            got = blocker.query_keys(probe_k[i:i + 1], probe_v[i:i + 1])
+            if not serve_smoke.same(serve_smoke.result_arrays(got)[0], want[i]):
+                raise AssertionError(f"serving: row {i} differs from a solo query_keys")
+
+    _, solo_s = synced(solo)
+    print(f"serving: every row equals a solo query_keys on the card "
+          f"({p} solo walks in {solo_s:.1f} s)", flush=True)
+
+    # the checked replay, then the profiled one, of one batch size
+    svc.probe_responses.clear()
+    checked = check_launches(lambda: probes(svc, SERVE_CHECKED_BATCH), kernels)
+    if checked != per_batch[SERVE_CHECKED_BATCH] or not serve_smoke.same(
+            serve_answers(svc)[1], want):
+        raise AssertionError(f"serving: the checked b={SERVE_CHECKED_BATCH} replay "
+                             f"({checked}) differs from the timed pass")
+    print(f"serving: b={SERVE_CHECKED_BATCH} replayed, every launch bit-identical "
+          f"to its plain version: {checked}", flush=True)
+    svc.probe_responses.clear()
+    profile_breakdown(lambda: probes(svc, SERVE_CHECKED_BATCH),
+                      tag=f"serving b={SERVE_CHECKED_BATCH}")
+
+    # a 4-shard tenant, its ingest checked launch by launch
+    sharded = service("cuda", n_shards=4)
+    sharded_ingest = check_launches(sharded.run, kernels)
+    probes(sharded, 64)
+    if not serve_smoke.same(serve_answers(sharded)[1], want):
+        raise AssertionError("serving: the 4-shard tenant answers differently")
+    if not (np.array_equal(sharded.tenant("t").store.led_pack, store.led_pack)):
+        raise AssertionError("serving: the 4-shard tenant's ledger differs")
+    print(f"serving: a 4-shard tenant (ingest checked launch by launch: "
+          f"{sharded_ingest}) answers all {p} rows equally; snapshot gauges "
+          f"{sharded.snapshot()['gauges']}", flush=True)
+    del sharded
+
+    # the same service on the cpu; refresh_clusters on both
+    cpu = service("cpu")
+    _, cpu_s = synced(cpu.run)
+    probes(cpu, 64, rows=SERVE_CPU_ROWS)
+    if not serve_smoke.same(serve_answers(cpu)[1], want[:SERVE_CPU_ROWS]):
+        raise AssertionError("serving: the cpu service answers differently")
+    got, refresh_s = synced(lambda: svc.refresh_clusters("t"))
+    ref = cpu.refresh_clusters("t")
+    if not (np.array_equal(got.label, ref.label)
+            and np.array_equal(got.survivors, ref.survivors)
+            and (got.converged, got.rounds) == (ref.converged, ref.rounds)):
+        raise AssertionError("serving: refresh_clusters differs cuda vs cpu")
+    print(f"serving: the cpu service (store built in {cpu_s:.1f} s) answers the first "
+          f"{SERVE_CPU_ROWS} rows equally; refresh_clusters on the card "
+          f"refresh_s={refresh_s:.4f}: {len(got.survivors)} clusters in {got.rounds} "
+          f"rounds (converged {got.converged}), equal to the cpu run; gauges "
+          f"{svc.snapshot()['gauges']}", flush=True)
+    print(f"phase 8a: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return probe_launches, ingest_launches
+
+
+def serving_lm():
+    """Phase 8b: tinyllama-1.1b at full width (bfloat16, seeded weights on
+    the card) through the ServingEngine, timed with CUDA events; then the
+    same widths at LM_CHECK_LAYERS layers in float32 on cuda and cpu."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import smoke as serve_smoke
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    n_params = sum(w.numel() for w in build_model(cfg, device="meta").parameters())
+    want_params = cfg.total_params() + 2 * cfg.num_layers * cfg.d_model + cfg.d_model
+    if n_params != want_params:
+        raise AssertionError(f"lm: {n_params} parameters, want {want_params}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_REQUESTS, LM_MAX_NEW)
+    serve_smoke.engine_run(model, [(0, reqs[0][1][:2], 2)], LM_SLOTS, LM_MAX_LEN)
+    eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for uid, prompt, max_new in reqs:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    results = eng.run()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = eng.pos   # each decode step advances the shared pos by one
+    tokens = [t for r in results for t in r.tokens]
+    if not (len(results) == LM_REQUESTS and len(tokens) == LM_REQUESTS * LM_MAX_NEW
+            and all(0 <= t < cfg.vocab_size for t in tokens) and steps < LM_MAX_LEN):
+        raise AssertionError(f"lm: {len(results)} results, {len(tokens)} tokens, "
+                             f"pos {steps} of max_len {LM_MAX_LEN}")
+    print(f"lm: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}; {n_params} parameters, equal to "
+          f"total_params plus the norms) served {LM_REQUESTS} requests over "
+          f"{LM_SLOTS} slots: served_tokens={len(tokens)} decode_steps={steps} "
+          f"step_ms={start.elapsed_time(end) / steps} wall_s={wall} "
+          f"tokens_per_s={len(tokens) / wall} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}", flush=True)
+    # where a decode step's time goes: ten steps of the full batch, profiled
+    tok = torch.ones((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    profile_breakdown(lambda: [model.decode_step(tok, eng.caches) for _ in range(10)],
+                      tag="lm decode x10")
+    del model, eng
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    cpu = build_model(small, device="cpu")
+    card = build_model(small, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = serve_smoke.engine_run(card, reqs, LM_SLOTS, LM_MAX_LEN)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    want, cpu_s = synced(lambda: serve_smoke.engine_run(cpu, reqs, LM_SLOTS, LM_MAX_LEN))
+    err = float((got["first_logits"] - want["first_logits"]).abs().max())
+    if not (got["tokens"] == want["tokens"] and got["pos"] == want["pos"]
+            and err <= LM_LOGIT_ATOL):
+        differ = [u for u in want["tokens"] if got["tokens"].get(u) != want["tokens"][u]]
+        raise AssertionError(f"lm check: requests {differ} differ cuda vs cpu, first-step "
+                             f"logits max_abs_err {err}")
+    print(f"lm check: {LM_CHECK_LAYERS} layers at the same widths in float32 (TF32 "
+          f"off): the same {LM_REQUESTS} requests give equal tokens on cuda and cpu "
+          f"(cpu run {cpu_s:.1f} s); first-step logits max_abs_err={err} "
+          f"(tolerance {LM_LOGIT_ATOL})", flush=True)
+    print(f"phase 8b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1596,6 +1883,10 @@ def main() -> int:
     table2_launches = table2(kernels, syn1m)
     torch.cuda.empty_cache()
     mesh_launches, mesh_gloo_launches = mesh_phase(kernels, syn1m, stream_ref)
+    del syn1m, stream_ref
+    torch.cuda.empty_cache()
+    serve_probe_launches, serve_ingest_launches = serving_service(kernels)
+    serving_lm()
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["stream100k_delta_launches"] = stream_launches[row["name"]]
@@ -1604,6 +1895,8 @@ def main() -> int:
         row["table2_syn1m_launches"] = table2_launches[row["name"]]
         row["mesh_launches"] = mesh_launches[row["name"]]
         row["mesh_gloo_launches"] = mesh_gloo_launches[row["name"]]
+        row["serving_probe_launches"] = serve_probe_launches[row["name"]]
+        row["serving_ingest_launches"] = serve_ingest_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

@@ -1,0 +1,100 @@
+"""The weight and cache carrier between the JAX package and the port.
+
+``params_from_jax`` turns the reference's parameter tree (its
+``model.init`` output, leaves as numpy arrays) into the port's
+``state_dict``; ``caches_from_jax`` and ``caches_to_numpy`` move KV caches
+between the reference's ``{"prefix", "unit"}`` tree and the port's list
+of per-layer caches, so tests can feed both packages the same state and
+compare what comes out. The reference's layers are a ``prefix`` list and
+a repeating ``unit``: scanned (``scan_layers=True``), each unit leaf has a
+leading ``n_repeat`` axis; unscanned, ``unit[j]`` is a list of
+``n_repeat`` trees. Layer ``len(prefix) + r * len(unit) + j`` is repeat
+``r`` of unit entry ``j``. Matrices keep the reference's orientation.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .transformer import layer_specs, split_prefix_unit
+
+_LAYER_LEAVES = (("pre_norm",), ("post_norm",), ("attn", "wq"), ("attn", "wk"),
+                 ("attn", "wv"), ("attn", "wo"), ("mlp", "w_gate"),
+                 ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+def _layer_trees(cfg: ModelConfig, stack: Dict) -> List:
+    """The per-layer subtrees of a ``{"prefix", "unit"}`` tree, in layer
+    order; a scanned unit entry is sliced along its leading axis."""
+    prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
+    out = list(stack["prefix"])
+    for r in range(n_repeat):
+        for j in range(len(unit)):
+            entry = stack["unit"][j]
+            if isinstance(entry, list):
+                out.append(entry[r])
+            else:
+                out.append(_index(entry, r))
+    return out
+
+
+def _index(tree, r):
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree)
+
+
+def params_from_jax(cfg: ModelConfig, tree: Dict) -> Dict[str, torch.Tensor]:
+    """The reference's params tree -> the port's ``state_dict`` (CPU
+    tensors in the tree's dtypes; ``load_state_dict`` moves them)."""
+    def t(x):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no numpy buffer
+            return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(x))
+
+    sd = {"embed.table": t(_get(tree, ("embed", "table"))),
+          "final_norm": t(tree["final_norm"])}
+    if not cfg.tie_embeddings:
+        sd["lm_head.w"] = t(_get(tree, ("lm_head", "w")))
+    for i, layer in enumerate(_layer_trees(cfg, tree["layers"])):
+        for path in _LAYER_LEAVES:
+            sd[f"stack.layers.{i}." + ".".join(path)] = t(_get(layer, path))
+    return sd
+
+
+def caches_from_jax(cfg: ModelConfig, caches: Dict, device) -> List[Dict]:
+    """The reference's caches -> the port's list (one cache a layer)."""
+    def one(c):
+        return {"k": torch.from_numpy(np.array(c["k"], np.float32)).to(device, cfg.cdtype),
+                "v": torch.from_numpy(np.array(c["v"], np.float32)).to(device, cfg.cdtype),
+                "pos": int(np.asarray(c["pos"]))}
+    return [one(c) for c in _layer_trees(cfg, caches)]
+
+
+def caches_to_numpy(cfg: ModelConfig, caches: List[Dict], scan_layers: bool) -> Dict:
+    """The port's caches -> the reference's ``{"prefix", "unit"}`` tree of
+    float32 numpy arrays (scanned: stacked on a leading axis)."""
+    prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
+
+    def one(c):
+        return {"k": c["k"].float().cpu().numpy(), "v": c["v"].float().cpu().numpy(),
+                "pos": np.int32(c["pos"])}
+
+    out = {"prefix": [one(c) for c in caches[:len(prefix)]], "unit": []}
+    for j in range(len(unit)):
+        reps = [one(caches[len(prefix) + r * len(unit) + j]) for r in range(n_repeat)]
+        if scan_layers:
+            out["unit"].append({k: np.stack([c[k] for c in reps]) for k in reps[0]})
+        else:
+            out["unit"].append(reps)
+    return out

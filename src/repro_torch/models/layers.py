@@ -1,0 +1,105 @@
+"""Shared layers: RMS norm, RoPE, embeddings, the SwiGLU MLP.
+
+Port of the JAX package's ``models/layers.py`` (the dense decoder's part;
+``layer_norm`` and the GELU MLP belong to enc-dec, ROADMAP A10b). Weights
+keep the reference's orientation (``x @ w``, ``w`` of shape ``(in, out)``)
+and its init scales, so ``convert.params_from_jax`` copies arrays as they
+are. Each weight is cast to the compute dtype where it is used, as the
+reference casts it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+
+
+def dense_param(shape, dtype, device, generator, scale: Optional[float] = None
+                ) -> nn.Parameter:
+    """Normal(0, 1) * scale, drawn in float32 then cast (the reference's
+    ``dense_init``; its fan-in is ``shape[-2]`` for any rank >= 2). On the
+    meta device nothing is drawn."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if torch.device(device).type == "meta":
+        w = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        w = (torch.randn(shape, generator=generator, dtype=torch.float32,
+                         device=device) * scale).to(dtype)
+    return nn.Parameter(w, requires_grad=False)
+
+
+def zeros_param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """Float32 RMS norm scaled by ``1 + weight``, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.to(torch.float32))).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S). Split-half layout (the first
+    and second halves of D are the pair), computed in float32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.table = dense_param((cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                                 device, generator, scale=1.0)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.table.to(self.cfg.cdtype)[tokens]
+
+
+class LMHead(nn.Module):
+    """Untied output projection, ``(d_model, vocab)``."""
+
+    def __init__(self, cfg: ModelConfig, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.w = dense_param((cfg.d_model, cfg.vocab_size), cfg.pdtype, device,
+                             generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w.to(self.cfg.cdtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+
+    def __init__(self, cfg: ModelConfig, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_gate = dense_param((d, f), cfg.pdtype, device, generator)
+        self.w_up = dense_param((d, f), cfg.pdtype, device, generator)
+        self.w_down = dense_param((f, d), cfg.pdtype, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg.cdtype
+        h = nn.functional.silu(x @ self.w_gate.to(c)) * (x @ self.w_up.to(c))
+        return h @ self.w_down.to(c)

@@ -445,3 +445,40 @@ def test_one_rank_distributed_hdb_and_routed_dedupe_cuda_equal_cpu(dev, one_rank
             assert np.array_equal(getattr(g, f), getattr(c, f))
         assert (g.exact, g.total_slots) == (c.exact, c.total_slots)
     assert gps[0].exact and not gps[1].exact
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_dedupe_service_cuda_equals_cpu(dev, n_shards):
+    """The serving smoke's two tenants (ingests, refresh_clusters, probes
+    in both modes, a shed probe) on the card and on the CPU: every
+    response, latency, ledger, cluster result and the snapshot equal."""
+    from repro_torch.kernels.hash64 import hash64
+    from repro_torch.serving import smoke
+    before = hash64.COMBINE_KERNEL.launches
+    got = smoke.service_run(dev, n_shards)
+    assert hash64.COMBINE_KERNEL.launches > before
+    assert smoke.differing(got, smoke.service_run("cpu", n_shards)) == []
+
+
+def test_serving_engine_cuda_equals_cpu(dev):
+    """The reduced tinyllama in float32 (TF32 off) with the same weights on
+    the card and on the CPU: the same greedy tokens, and first-step logits
+    within 1e-4 (float32 products summed in another order)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import smoke
+    cfg = reduced_config("tinyllama-1.1b")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    reqs = smoke.lm_requests(cfg.vocab_size, 6, 16, hi=8)
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = smoke.engine_run(card, reqs, 4, 256)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    want = smoke.engine_run(cpu, reqs, 4, 256)
+    assert got["tokens"] == want["tokens"] and got["pos"] == want["pos"]
+    torch.testing.assert_close(got["first_logits"], want["first_logits"],
+                               rtol=0, atol=1e-4)
