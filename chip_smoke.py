@@ -46,12 +46,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       a store built the same way with every launch held against its plain
       version as it happens; a third delta profiled;
    c. the SYN stream: the SYN1M spec at SYN_STREAM_ENTITIES in a seeded
-      arrival order through DedupPipeline.extend (a base, then ten 1%
-      deltas, the last profiled); every kernel must launch; the base and
-      the deltas are replayed on a twin pipeline with every launch held
-      against its plain version as it happens (same counts, same last
-      report); and the last report must equal dedup_corpus on the same
-      rows with an exact pair budget;
+      arrival order through DedupPipeline.extend (a base, then
+      SYN_STREAM_DELTAS 1% deltas, the last profiled); every kernel must
+      launch; the base and the deltas are replayed on a twin pipeline with
+      every launch held against its plain version as it happens (same
+      counts, same last report); and the last report must equal
+      dedup_corpus on the same rows with an exact pair budget;
    d. the sharded store: the smoke config in 3 parts through
       StreamingEngine(n_shards=n) for n in 1, 4, 8 on cuda, every launch
       held against its plain version, equal to the n_shards=1 (BlockStore)
@@ -114,7 +114,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       checked on the meta device), 16 requests of 2-32 prompt tokens over
       8 slots, 32 new tokens each, max_len 1024, timed with CUDA events;
       ten more decode steps profiled; then the same widths at 2 layers in float32 (TF32 off) on cuda and
-      cpu: equal tokens, first-step logits within 1e-3.
+      cpu: equal tokens, first-step logits within 1e-3;
+9. training (``repro_torch.launch.train``, ``repro_torch.training``):
+   a. the launcher on tinyllama-1.1b as published (bfloat16, seeded
+      weights on the card, remat "full"), --dedup at its defaults (3,000
+      entities, batch 8, seq 256), 12 steps with a checkpoint every 6,
+      every dedup kernel launch held against its plain version (launch
+      counts zeroed just before and read just after); every loss finite;
+      the CUDA-event step time of steps 2-12, tokens/s, peak memory, the
+      checkpoints' size and save time; then a second run resumed from
+      step 6's checkpoint to step 12 (step counter, the loader's batch at
+      step 6 equal to the first run's); two more steps profiled (idle
+      share, launches a step, top device kernels) and the optimizer's
+      device time;
+   b. the same widths at 2 layers in float32 (TF32 off) from the same
+      weights on cuda and cpu: 3 train steps with wq and wk scaled by
+      1/8 give loss, ce and grad_norm within rtol 1e-4; one step at the
+      unscaled init is printed beside them; and, in a process of its own
+      with deterministic kernels (``python -m repro_torch.training.smoke``),
+      a run resumed from a checkpoint halfway bit-identical to the
+      uninterrupted run.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` from the SYN1M HDB run; ``stream100k_delta_launches``,
@@ -122,15 +141,18 @@ The line before the last is a JSON object with one entry per kernel
 ``table2_syn1m_launches`` from phase 6, ``mesh_launches`` from phase 7b's
 timed runs, ``mesh_gloo_launches`` from rank 0 of phase 7c,
 ``serving_probe_launches`` summed over phase 8a's three timed passes and
-``serving_ingest_launches`` from its write-lane build); the last line is
+``serving_ingest_launches`` from its write-lane build,
+``train_dedup_launches`` from phase 9a's first run); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -182,14 +204,16 @@ STREAM_DELTA = 1_000
 # the SYN stream: the SYN1M spec arriving in a seeded order, a base then
 # SYN_STREAM_DELTAS deltas of 1% each through DedupPipeline.extend. Cut
 # from SYN1M's 400,000 entities: at 200,000 one 1% delta took 54 s of host
-# time on an H100 (PERF.md section 4)
+# time on an H100 (PERF.md section 4); and from ten deltas to four: each
+# costs about 20 s, twice with its checked replay, which kept the script
+# too near its time limit
 SYN_STREAM_ENTITIES = 100_000
-SYN_STREAM_DELTAS = 10
+SYN_STREAM_DELTAS = 4
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
 TRI_EXTREME_SLOTS = 1 << 20
 
 
-RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.", "stream.", "serve.")
+RANGE_PREFIXES = ("dedup.", "hdb.", "pairs.", "stream.", "serve.", "train.")
 
 
 def _kernel_events(prof):
@@ -206,9 +230,11 @@ def device_ms(fn, reps=REPS):
     kernels it launches (torch.profiler), without host launch gaps.
 
     Every call launches the same kernels, so an event count that is no
-    multiple of the calls means the profiler lost events (it has, on
-    calls of hundreds of kernels): the window is measured again, and the
-    third that still loses events raises."""
+    multiple of the calls means the profiler lost (or gained) events (it
+    has, on calls of hundreds of kernels, and on the compacting scatter of
+    check_cms): the window is measured again; after the third, each call
+    is profiled in a window of its own, and the calls are timed there if
+    every window saw the same device events, else it raises."""
     from torch.profiler import ProfilerActivity, profile
     attempts = 3
     fn()
@@ -221,8 +247,21 @@ def device_ms(fn, reps=REPS):
         events = _kernel_events(prof)
         if events and len(events) % reps == 0:
             return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
-    raise AssertionError(f"profiler saw {len(events)} device events over "
-                         f"{reps} calls, {attempts} times")
+    windows = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        windows.append(_kernel_events(prof))
+    names = [sorted(e.name for e in w) for w in windows]
+    if names[0] and all(n == names[0] for n in names):
+        print(f"device_ms: {len(events)} device events over {reps} calls in one "
+              f"window, {attempts} times; timed in {reps} windows of one call "
+              f"({len(names[0])} events each)", flush=True)
+        return sum(e.time_range.elapsed_us() for w in windows for e in w) / reps / 1e3
+    raise AssertionError(f"profiler saw {len(events)} device events over {reps} calls, "
+                         f"{attempts} times, and windows of one call saw "
+                         f"{[len(n) for n in names]}: {sorted(set(names[0]))[:8]}")
 
 
 def call_ms(fn, reps=REPS, inner=10):
@@ -699,7 +738,8 @@ def profile_breakdown(run, tag="SYN1M"):
     """Run ``run`` under torch.profiler; print the stage ranges, the
     device's busy time and idle share of the wall time, the top device
     kernels and the top host ops, each line marked with ``tag``. Returns
-    (run's result, wall seconds)."""
+    (run's result, wall seconds, device busy seconds, device launches,
+    {range: device seconds of the kernels its ops launched})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -711,13 +751,18 @@ def profile_breakdown(run, tag="SYN1M"):
         calls, us = kernels.get(e.name, (0, 0.0))
         kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in kernels.values()) / 1e6
+    launches = sum(calls for calls, _ in kernels.values())
     print(f"profile {tag}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
-          f"device_idle_share={1 - busy / wall:.4f}", flush=True)
+          f"device_idle_share={1 - busy / wall:.4f} device_launches={launches}",
+          flush=True)
     events = prof.key_averages()
+    ranges = {}
     for e in sorted(events, key=lambda e: e.key):
         if e.key.startswith(RANGE_PREFIXES) and e.cpu_time_total:
+            ranges[e.key] = e.device_time_total / 1e6
             print(f"profile {tag} range {e.key}: calls={e.count} "
-                  f"host_s={e.cpu_time_total / 1e6:.3f}", flush=True)
+                  f"host_s={e.cpu_time_total / 1e6:.3f} device_s={ranges[e.key]:.4f}",
+                  flush=True)
     for name, (calls, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"profile {tag} device kernel {name[:70]}: calls={calls} "
               f"device_s={us / 1e6:.4f}", flush=True)
@@ -725,7 +770,7 @@ def profile_breakdown(run, tag="SYN1M"):
     for e in sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"profile {tag} host op {e.key[:60]}: calls={e.count} "
               f"host_s={e.self_cpu_time_total / 1e6:.4f}", flush=True)
-    return out, wall
+    return out, wall, busy, launches, ranges
 
 
 def check_components(tag, rep):
@@ -950,7 +995,7 @@ def syn_stream(kernels, entities=SYN_STREAM_ENTITIES):
         def extend():
             return pipe.extend(synthetic.corpus_slice(arrived, np.arange(lo, hi)))
         if i == SYN_STREAM_DELTAS:
-            rep, secs = profile_breakdown(extend, tag="SYN stream delta")
+            rep, secs, *_ = profile_breakdown(extend, tag="SYN stream delta")
         else:
             rep, secs = synced(extend)
         print(f"SYN stream extend {i} ({'base' if i == 0 else 'delta'}): records="
@@ -1843,6 +1888,170 @@ def serving_lm():
     print(f"phase 8b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training (launch/train.py, training/)
+# ---------------------------------------------------------------------------
+
+# the launcher on tinyllama-1.1b as published, at its defaults (--dedup of
+# 3,000 entities, batch 8, seq 256): 12 steps, a checkpoint every 6, then a
+# run resumed from step 6
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 6
+TRAIN_PROFILED_STEPS = 2
+# the cuda == cpu check: the same widths at 2 layers in float32, TF32 off,
+# wq and wk scaled by 1/8 (wq's init at fan-in d_model: the reference's
+# fan-in of 32 heads makes the softmax sharp enough that float32 rounding,
+# amplified by AdamW's first update, parts two devices' runs);
+# tests/test_torch_training.py's rtol for loss, ce and grad_norm
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_STEPS = 3
+TRAIN_CHECK_QK_SCALE = 0.125
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+TRAIN_RTOL = 1e-4
+
+
+def training_full_width(kernels):
+    """Phase 9a. Returns the first run's dedup launch counts."""
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import make_train_step
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--dedup",
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir", ckpt]
+    try:
+        print(f"train: disk free under {root}: {shutil.disk_usage(root).free} bytes",
+              flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for k in kernels:
+            k.launches = 0
+        checked = check_launches(lambda: runs.append(train.main(argv)), kernels)
+        launches = {k.name: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        if checked != launches:
+            raise AssertionError(f"train: checked launches {checked} != counted {launches}")
+        run = runs.pop()
+        cfg, lcfg = run.model.cfg, run.loader.cfg
+        losses = np.asarray(run.losses)
+        if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+                and int(run.state["step"]) == TRAIN_STEPS):
+            raise AssertionError(f"train: losses {run.losses}, step {int(run.state['step'])}")
+        timed = run.step_ms[1:]
+        tokens = lcfg.batch_size * lcfg.seq_len
+        print(f"train: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.param_dtype}, remat {cfg.remat}) batch {lcfg.batch_size} seq "
+              f"{lcfg.seq_len}: {TRAIN_STEPS} steps, loss first={losses[0]} "
+              f"last={losses[-1]}; steps 2-{TRAIN_STEPS} step_ms={np.mean(timed)} "
+              f"(min {min(timed)} max {max(timed)}) tokens_per_s="
+              f"{tokens * len(timed) / (sum(timed) / 1e3)}; first step_ms={run.step_ms[0]}; "
+              f"max_memory_allocated={peak}", flush=True)
+        print(f"train: dedup launches (each held against its plain version) "
+              f"{launches}; not launched: {[n for n, c in launches.items() if c == 0]}",
+              flush=True)
+        for step, secs, size in run.saves:
+            print(f"train: checkpoint at step {step}: {size} bytes saved in {secs} s",
+                  flush=True)
+        want_batch = run.loader.batch(TRAIN_CKPT_EVERY)
+        first_losses = run.losses
+        del run
+        torch.cuda.empty_cache()
+
+        # killed after step 6's checkpoint: step 12's never written
+        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:010d}"))
+        with open(os.path.join(ckpt, "LATEST"), "w") as f:
+            f.write(str(TRAIN_CKPT_EVERY))
+        for k in kernels:
+            k.launches = 0
+        checked2 = check_launches(lambda: runs.append(train.main(argv)), kernels)
+        run = runs.pop()
+        if checked2 != launches:
+            raise AssertionError(f"train resume: dedup launches {checked2} != {launches}")
+        got_batch = run.loader.batch(TRAIN_CKPT_EVERY)
+        if not (run.start == TRAIN_CKPT_EVERY and int(run.state["step"]) == TRAIN_STEPS
+                and len(run.losses) == TRAIN_STEPS - TRAIN_CKPT_EVERY
+                and np.isfinite(run.losses).all()
+                and all(torch.equal(a, b) for a, b in zip(got_batch, want_batch))):
+            raise AssertionError(f"train resume: start {run.start}, step "
+                                 f"{int(run.state['step'])}, losses {run.losses}")
+        print(f"train: resumed from step {run.start} to {int(run.state['step'])}; the "
+              f"loader's batch at step {TRAIN_CKPT_EVERY} equals the first run's; losses "
+              f"{run.losses} (first run {first_losses[TRAIN_CKPT_EVERY:]})", flush=True)
+
+        step_fn = make_train_step(run.model, run.tcfg)
+        state = run.state
+
+        def steps():
+            nonlocal state
+            for i in range(TRAIN_PROFILED_STEPS):
+                x, y = run.loader.batch(TRAIN_STEPS + i)
+                state, _ = step_fn(state, {"tokens": x, "targets": y})
+
+        _, wall, busy, n_launch, ranges = profile_breakdown(
+            steps, tag=f"train x{TRAIN_PROFILED_STEPS}")
+        opt_s = ranges["train.optimizer"]
+        print(f"train: a profiled step: wall_ms={wall / TRAIN_PROFILED_STEPS * 1e3} "
+              f"device_busy_ms={busy / TRAIN_PROFILED_STEPS * 1e3} "
+              f"launches={n_launch / TRAIN_PROFILED_STEPS}; the optimizer's kernels "
+              f"device_ms={opt_s / TRAIN_PROFILED_STEPS * 1e3} ({opt_s / busy:.4f} of "
+              f"the device time)", flush=True)
+        del run, state, step_fn
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 9a: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
+def training_check():
+    """Phase 9b: cuda == cpu at 2 layers in float32, and the deterministic
+    resume in a process of its own."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import smoke
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    init = build_model(cfg, device="cpu").state_dict()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for scale, n in ((TRAIN_CHECK_QK_SCALE, TRAIN_CHECK_STEPS), (1.0, 1)):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                model = build_model(cfg, device=dev)
+                model.load_state_dict(init)
+                smoke.scale_qk(model, scale)
+                bs = smoke.batches(cfg, n, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, dev)
+                out[dev] = smoke.train_steps(model, bs)[1]
+                del model
+            errs[scale] = [max(abs(g[k] - w[k]) / abs(w[k]) for k in ("loss", "ce", "grad_norm"))
+                           for g, w in zip(out["cuda"], out["cpu"])]
+            print(f"train check: qk scale {scale}, {n} steps: cuda losses "
+                  f"{[m['loss'] for m in out['cuda']]} cpu {[m['loss'] for m in out['cpu']]}; "
+                  f"max relative error of loss, ce, grad_norm a step {errs[scale]}", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    if max(errs[TRAIN_CHECK_QK_SCALE]) > TRAIN_RTOL:
+        raise AssertionError(f"train check: cuda vs cpu {errs[TRAIN_CHECK_QK_SCALE]} over "
+                             f"rtol {TRAIN_RTOL}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.training.smoke", "--arch", TRAIN_ARCH,
+         "--layers", str(TRAIN_CHECK_LAYERS)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train resume check failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    print(f"train check: deterministic resume on the card, bit-identical: "
+          f"{proc.stdout.strip().splitlines()[-1]}", flush=True)
+    print(f"phase 9b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1887,6 +2096,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_probe_launches, serve_ingest_launches = serving_service(kernels)
     serving_lm()
+    train_launches = training_full_width(kernels)
+    training_check()
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["stream100k_delta_launches"] = stream_launches[row["name"]]
@@ -1897,6 +2108,7 @@ def main() -> int:
         row["mesh_gloo_launches"] = mesh_gloo_launches[row["name"]]
         row["serving_probe_launches"] = serve_probe_launches[row["name"]]
         row["serving_ingest_launches"] = serve_ingest_launches[row["name"]]
+        row["train_dedup_launches"] = train_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

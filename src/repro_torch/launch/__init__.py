@@ -1,1 +1,2 @@
-"""Command-line launchers of the port (``block``)."""
+"""Command-line launchers of the port (``block``, ``train``) and their
+inputs (``specs``)."""

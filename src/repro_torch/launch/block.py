@@ -13,7 +13,11 @@ on a one-dim ``("data",)`` mesh: NCCL on the card, gloo with
 ``--device cpu``. A world of one runs ``hashed_dynamic_blocking``, as the
 reference does on one device. ``main`` joins a process group that is
 already initialised (the tests' gloo worlds) and otherwise initialises
-one from torchrun's environment.
+one from torchrun's environment. ``--ckpt-dir D`` checkpoints each
+rank's local HDB state (keys, valid, psize) after every iteration of the
+mesh path (``training/checkpoint``, under ``D/rank_<r>``, where the
+reference's one controller writes the global state to ``D``); as in the
+reference, the single-device path takes no checkpoint.
 """
 import argparse
 import logging
@@ -26,6 +30,7 @@ from ..core import blocks, distributed, hdb
 from ..core.hdb import HDBConfig
 from ..data import synthetic
 from ..device import resolve_device
+from ..training import checkpoint
 
 
 def main(argv=None):
@@ -36,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--entities", type=int, default=2000)
     ap.add_argument("--max-block-size", type=int, default=100)
     ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint every iteration (not ported: ROADMAP A11)")
+                    help="checkpoint each rank's state every iteration of the "
+                         "mesh path, under <dir>/rank_<r>")
     ap.add_argument("--rep-capacity", type=int, default=0,
                     help="per-shard over-sized block rep capacity "
                          "(0 = DistConfig default)")
@@ -49,10 +55,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--dryrun needs the port's lowering and cost analysis (launch/"
             "dryrun.py, hlo_analysis.py), which wait for ROADMAP A10")
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir needs the port's training/checkpoint, which waits for "
-            "ROADMAP A11")
 
     cfg = HDBConfig(max_block_size=args.max_block_size)
     dist_kw = {}
@@ -78,9 +80,14 @@ def main(argv=None):
             from torch.distributed.device_mesh import DeviceMesh
             keys, valid = distributed.pad_rows(keys, valid, world)
             mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("data",))
+            cb = None
+            if args.ckpt_dir:
+                rank_dir = os.path.join(args.ckpt_dir, f"rank_{tdist.get_rank()}")
+                cb = lambda it, st: checkpoint.save(rank_dir, it, st)  # noqa: E731
             res = distributed.distributed_hashed_dynamic_blocking(
                 keys, valid, cfg, mesh, ("data",),
-                dist=distributed.DistConfig(**dist_kw), verbose=True, device=dev)
+                dist=distributed.DistConfig(**dist_kw), checkpoint_cb=cb,
+                verbose=True, device=dev)
         else:
             res = hdb.hashed_dynamic_blocking(keys, valid, cfg, verbose=True, device=dev)
         if not tdist.is_initialized() or tdist.get_rank() == 0:

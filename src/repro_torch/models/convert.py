@@ -2,7 +2,9 @@
 
 ``params_from_jax`` turns the reference's parameter tree (its
 ``model.init`` output, leaves as numpy arrays) into the port's
-``state_dict``; ``caches_from_jax`` and ``caches_to_numpy`` move KV caches
+``state_dict``; ``train_state_from_jax`` carries a whole train state
+(parameters, AdamW moments, step counters, error feedback) into the
+port's; ``caches_from_jax`` and ``caches_to_numpy`` move KV caches
 between the reference's ``{"prefix", "unit"}`` tree and the port's list
 of per-layer caches, so tests can feed both packages the same state and
 compare what comes out. The reference's layers are a ``prefix`` list and
@@ -70,6 +72,32 @@ def params_from_jax(cfg: ModelConfig, tree: Dict) -> Dict[str, torch.Tensor]:
         for path in _LAYER_LEAVES:
             sd[f"stack.layers.{i}." + ".".join(path)] = t(_get(layer, path))
     return sd
+
+
+@torch.no_grad()
+def train_state_from_jax(cfg: ModelConfig, tree: Dict, state: Dict) -> Dict:
+    """Copy the reference's train state (``init_train_state`` /
+    ``train_step`` output, leaves as numpy arrays) into the port's
+    ``state`` (``training.train_loop.init_train_state``) in place: the
+    parameters, ``opt.mu``, ``opt.nu`` and ``error_fb`` (each with the
+    parameters' tree) through ``params_from_jax``, ``opt.step`` and
+    ``step``. Returns ``state``."""
+    trees = [("params",), ("opt", "mu"), ("opt", "nu")]
+    if "error_fb" in tree:
+        trees.append(("error_fb",))
+    for path in trees:
+        src, dst = tree, state
+        for p in path:
+            src, dst = src[p], dst[p]
+        sd = params_from_jax(cfg, src)
+        if set(sd) != set(dst):
+            raise ValueError(f"{'.'.join(path)}: the reference's leaves "
+                             f"{sorted(set(sd) ^ set(dst))} have no counterpart")
+        for k, v in sd.items():
+            dst[k].copy_(v)
+    state["opt"]["step"].copy_(torch.from_numpy(np.array(tree["opt"]["step"])))
+    state["step"].copy_(torch.from_numpy(np.array(tree["step"])))
+    return state
 
 
 def caches_from_jax(cfg: ModelConfig, caches: Dict, device) -> List[Dict]:

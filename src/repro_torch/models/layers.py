@@ -30,12 +30,11 @@ def dense_param(shape, dtype, device, generator, scale: Optional[float] = None
     else:
         w = (torch.randn(shape, generator=generator, dtype=torch.float32,
                          device=device) * scale).to(dtype)
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 def zeros_param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -72,7 +71,10 @@ class Embedding(nn.Module):
                                  device, generator, scale=1.0)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table.to(self.cfg.cdtype)[tokens]
+        # the reference's gather; F.embedding's CPU backward sums each row
+        # in order, where indexing's accumulates with atomics and so is not
+        # reproducible
+        return nn.functional.embedding(tokens, self.table.to(self.cfg.cdtype))
 
 
 class LMHead(nn.Module):

@@ -5,16 +5,18 @@ Port of the JAX package's ``models/model.py`` for the dense family
 
     model = build_model(cfg, device="cuda", generator=g)  # seeded weights
     logits, aux = model.apply(batch)                      # forward
-    loss, metrics = model.loss(batch)                     # forward only
+    loss, metrics = model.loss(batch)                     # training fwd
     caches = model.init_caches(batch_size, max_len)       # serving
     logits, caches = model.prefill(batch, caches)
     logits, caches = model.decode_step(token, caches)
 
 The model carries its weights and device (the reference passes a params
 tree to pure functions; ``convert.params_from_jax`` loads one). Batch
-dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors. Every
-entry point runs without autograd: serving comes before training here.
-Multi-token prediction, MoE, MLA, hybrid, ssm, enc-dec and vlm raise
+dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors.
+``build_model`` returns the weights frozen (``requires_grad`` off), so
+``apply`` and ``loss`` build no graph; ``training.train_loop`` turns
+gradients on and differentiates ``loss``. ``prefill`` and
+``decode_step`` (serving) always run without autograd. Multi-token prediction, MoE, MLA, hybrid, ssm, enc-dec and vlm raise
 ``NotImplementedError`` (ROADMAP A10b). The reference's sharding
 annotations (``lshard``) have no counterpart on one card.
 """
@@ -61,7 +63,6 @@ class Model(nn.Module):
             return x @ self.embed.table.to(self.cfg.cdtype).T
         return self.lm_head(x)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B,S) tokens -> (B,S,V) logits in the compute dtype."""
         x, _ = self._backbone(tokens)
@@ -77,7 +78,6 @@ class Model(nn.Module):
                         "moe_dropped": torch.zeros((), dtype=torch.int32,
                                                    device=logits.device)}
 
-    @torch.no_grad()
     def loss(self, batch: Dict) -> tuple:
         """Cross-entropy plus the reference's z-loss (1e-4 mean lse^2) and
         MoE aux term (zero here): (total, metrics)."""
@@ -110,7 +110,7 @@ class Model(nn.Module):
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> Model:
     """The dense decoder of ``cfg`` with seeded random weights on
-    ``device`` (None means the card; ``"meta"`` allocates nothing).
+    ``device`` (None means the card; ``"meta"`` allocates nothing), frozen.
     ``generator`` must live on that device; None seeds one with 0."""
     if cfg.family != "dense" or cfg.mtp or cfg.use_mla or cfg.moe_num_experts:
         raise NotImplementedError(
@@ -120,4 +120,4 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    return Model(cfg, dev, generator).eval()
+    return Model(cfg, dev, generator).eval().requires_grad_(False)

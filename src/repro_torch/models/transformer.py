@@ -6,17 +6,26 @@ decoder. ``layer_specs`` and ``split_prefix_unit`` are the reference's
 cache trees); the port supports only the ``("attn", "mlp")`` layer kind,
 and any other kind raises ``NotImplementedError`` (ROADMAP A10b).
 
-Eager PyTorch has no scan and no remat, so the port keeps one
-``nn.ModuleList`` of layers in layer order (prefix, then the unit
-repeated ``n_repeat`` times); ``cfg.scan_layers`` and ``cfg.remat``
-change nothing here.
+Eager PyTorch has no scan, so the port keeps one ``nn.ModuleList`` of
+layers in layer order (prefix, then the unit repeated ``n_repeat``
+times); ``cfg.scan_layers`` changes nothing here. ``cfg.remat`` is the
+reference's rematerialisation of each unit, per layer (every unit of
+the ported layer kind is one layer) while autograd records a forward
+without caches: ``"full"`` keeps only the layer's input
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
+``"selective"`` also keeps the outputs of the weight products
+(``aten.mm``: dots with no batch dims, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest. Remat
+changes memory, not values.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import attention, layers
 from .config import ModelConfig
@@ -53,6 +62,25 @@ def split_prefix_unit(specs: List[LayerSpec]) -> Tuple[List[LayerSpec], List[Lay
             if all(tail[i] == unit[i % unit_len] for i in range(len(tail))):
                 return specs[:prefix_len], unit, len(tail) // unit_len
     return specs, [], 0  # fully unrolled fallback
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective remat policy: keep the non-batched products (``x @ w``
+    reaches ``aten.mm``; attention's batched einsums reach ``aten.bmm``)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
+    if remat == "full":
+        return ckpt.checkpoint(layer, x, positions, use_reentrant=False)
+    if remat == "selective":
+        return ckpt.checkpoint(
+            layer, x, positions, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _save_weight_products))
+    raise ValueError(f"remat {remat!r}: none, full or selective")
 
 
 class DecoderLayer(nn.Module):
@@ -93,6 +121,12 @@ class Stack(nn.Module):
     def forward(self, x: torch.Tensor, positions=None,
                 caches: Optional[List] = None):
         """``caches``: one cache a layer, in layer order, or None."""
+        recording = torch.is_grad_enabled() and any(p.requires_grad
+                                                    for p in self.parameters())
+        if caches is None and self.cfg.remat != "none" and recording:
+            for layer in self.layers:
+                x, _ = _remat(layer, self.cfg.remat, x, positions)
+            return x, None
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             x, c = layer(x, positions=positions,

@@ -1,5 +1,6 @@
 """Helpers of the port's mesh tests (``tests/test_torch_distributed.py``,
-``test_torch_sharded_mesh.py``, ``test_torch_launch.py``).
+``test_torch_sharded_mesh.py``, ``test_torch_launch.py``,
+``test_torch_training.py``).
 
 Two halves, run in separate processes:
 
@@ -53,6 +54,21 @@ SHARD_SCENARIOS = {"flat": ("flat", 8, 2.0, False, 120, 20),
 
 # the launcher's arguments (both packages' launch/block.py)
 LAUNCH_ARGV = ["--entities", "300", "--max-block-size", "40"]
+
+
+# compressed_psum_grads over a data-parallel group: each rank's gradient
+# and error-feedback leaves (float32, per-row scales over the last axis)
+COMPRESS_SHAPES = {"w": (6, 16), "b": (16,), "t": (2, 3, 8)}
+
+
+def compress_inputs(rank):
+    """Rank ``rank``'s (grads, error_fb) as numpy float32 trees."""
+    rng = np.random.default_rng(100 + rank)
+    grads = {k: (rng.standard_normal(s) * 10.0 ** rng.integers(-3, 1)).astype(np.float32)
+             for k, s in COMPRESS_SHAPES.items()}
+    efb = {k: (rng.standard_normal(s) * 1e-3).astype(np.float32)
+           for k, s in COMPRESS_SHAPES.items()}
+    return grads, efb
 
 
 def stats_rows(stats):
@@ -272,7 +288,72 @@ def job_launch(world):
     return blocking_out(res)
 
 
-JOBS = {"hdb": job_hdb, "shard": job_shard, "launch": job_launch}
+def job_launch_ckpt(world):
+    """The launcher with --ckpt-dir, each save recorded; then each kept
+    checkpoint restored and held to the rank-local state of a direct run
+    that hands every iteration's state to its callback."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import blocks, distributed, hdb
+    from repro_torch.data import synthetic
+    from repro_torch.launch import block
+    from repro_torch.training import checkpoint
+    ckpt_dir = os.path.join(os.environ["REPRO_TEST_TMP"], "ckpt")
+    saved = []
+    original = checkpoint.save
+
+    def save(directory, step, tree, **kw):
+        saved.append((directory, step))
+        return original(directory, step, tree, **kw)
+
+    checkpoint.save = save
+    try:
+        res = block.main(LAUNCH_ARGV + ["--device", "cpu", "--ckpt-dir", ckpt_dir])
+    finally:
+        checkpoint.save = original
+    args = dict(zip(LAUNCH_ARGV[::2], LAUNCH_ARGV[1::2]))
+    corpus = synthetic.generate(synthetic.SyntheticSpec(
+        num_entities=int(args["--entities"]), seed=3), device="cpu")
+    keys, valid = blocks.build_keys(corpus.columns, corpus.blocking)
+    keys, valid = distributed.pad_rows(keys, valid, world)
+    states = {}
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("data",))
+    distributed.distributed_hashed_dynamic_blocking(
+        keys, valid, hdb.HDBConfig(max_block_size=int(args["--max-block-size"])),
+        mesh, ("data",), device="cpu",
+        checkpoint_cb=lambda it, st: states.__setitem__(
+            it, {k: v.clone() for k, v in st.items()}))
+    rank_dir = os.path.join(ckpt_dir, f"rank_{dist.get_rank()}")
+    kept = sorted(int(d[len("step_"):]) for d in os.listdir(rank_dir)
+                  if d.startswith("step_"))
+    restored_equal = {}
+    for it in kept:
+        template = {k: torch.zeros_like(v) for k, v in states[it].items()}
+        got = checkpoint.restore(rank_dir, template, step=it)
+        restored_equal[it] = all(torch.equal(got[k], states[it][k]) for k in got)
+    return {"saved": saved, "rank_dir": rank_dir, "n_iterations": len(res.stats),
+            "latest": checkpoint.latest_step(rank_dir), "kept": kept,
+            "restored_equal": restored_equal}
+
+
+def job_compress(world):
+    """compressed_psum_grads over a mesh dim's process group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.training.compression import compressed_psum_grads
+    grads, efb = compress_inputs(dist.get_rank())
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("data",))
+    deq, new_efb = compressed_psum_grads(
+        {k: torch.from_numpy(v) for k, v in grads.items()},
+        {k: torch.from_numpy(v) for k, v in efb.items()}, group=mesh.get_group("data"))
+    return ({k: v.numpy() for k, v in deq.items()},
+            {k: v.numpy() for k, v in new_efb.items()})
+
+
+JOBS = {"hdb": job_hdb, "shard": job_shard, "launch": job_launch,
+        "launch_ckpt": job_launch_ckpt, "compress": job_compress}
 
 
 def _rank_main(rank, world, init, tmp, job):
@@ -282,6 +363,7 @@ def _rank_main(rank, world, init, tmp, job):
     # torch 2.13 renames all_gather_into_tensor; the port keeps the name
     # the chip's torch 2.11 has
     warnings.filterwarnings("ignore", category=FutureWarning)
+    os.environ["REPRO_TEST_TMP"] = tmp
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     try:
         out = JOBS[job](world)
@@ -425,12 +507,32 @@ def ref_launch(n_dev):
     return {**blocking_out(res), "printed": printed.getvalue()}
 
 
+def ref_compress(n_dev=2):
+    """The reference's compressed_psum_grads under shard_map over ``n_dev``
+    devices, each device holding one rank's leaves: rank r's (deq, efb)."""
+    import jax
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+    from repro.training.compression import compressed_psum_grads
+    inputs = [compress_inputs(r) for r in range(n_dev)]
+    grads = {k: np.stack([g[k] for g, _ in inputs]) for k in COMPRESS_SHAPES}
+    efb = {k: np.stack([e[k] for _, e in inputs]) for k in COMPRESS_SHAPES}
+    mesh = jax.make_mesh((n_dev,), ("data",))
+    f = shard_map(lambda g, e: compressed_psum_grads(g, e, axis="data"), mesh=mesh,
+                  in_specs=(P("data"), P("data")), out_specs=(P("data"), P("data")),
+                  check_rep=False)
+    deq, new_efb = jax.tree.map(np.asarray, f(grads, efb))
+    return [({k: v[r] for k, v in deq.items()}, {k: v[r] for k, v in new_efb.items()})
+            for r in range(n_dev)]
+
+
 # one JAX run a shard count (the result depends on the count, not the
 # mesh's shape; the reference's own tests hold the routed dedupe equal on
 # every mesh), two processes that run side by side
 REFS = {"hdb8": lambda: ref_hdb("flat"), "hdb4": lambda: ref_hdb("flat4"),
         "shard": ref_shard,
-        "launch2": lambda: ref_launch(2), "launch1": lambda: ref_launch(1)}
+        "launch2": lambda: ref_launch(2), "launch1": lambda: ref_launch(1),
+        "compress": ref_compress}
 
 
 def reference_process(job, out, n_dev=8):

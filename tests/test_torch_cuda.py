@@ -482,3 +482,58 @@ def test_serving_engine_cuda_equals_cpu(dev):
     assert got["tokens"] == want["tokens"] and got["pos"] == want["pos"]
     torch.testing.assert_close(got["first_logits"], want["first_logits"],
                                rtol=0, atol=1e-4)
+
+
+def test_train_steps_cuda_equal_cpu(dev):
+    """The reduced tinyllama in float32 (TF32 off), wq and wk scaled by 1/4
+    as tests/test_torch_training.py holds the reference: 3 train steps on
+    the card and on the CPU from the same weights give loss, ce and
+    grad_norm within rtol 1e-4."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import smoke
+    cfg = reduced_config("tinyllama-1.1b")
+    cpu = smoke.scale_qk(build_model(cfg, device="cpu"), 0.25)
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, got = smoke.train_steps(card, smoke.batches(cfg, 3, 4, 32, dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    _, want = smoke.train_steps(cpu, smoke.batches(cfg, 3, 4, 32, "cpu"))
+    for g, w in zip(got, want):
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            assert g[k] == pytest.approx(w[k], rel=1e-4), k
+
+
+def test_train_resume_bit_identical_on_the_card(dev):
+    """A run resumed from a checkpoint halfway equals the uninterrupted run
+    to the bit, in a process of its own with deterministic kernels."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.training.smoke"],
+                          cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"differing_leaves": []' in proc.stdout
+
+
+def test_checkpoint_restores_across_devices(dev, tmp_path):
+    """A checkpoint saved from the CPU restores onto the card, and one
+    saved from the card onto the CPU (each leaf onto its template's
+    device), bit for bit."""
+    from repro_torch.training import checkpoint
+    tree = {"w": torch.arange(12.0).reshape(3, 4).to(torch.bfloat16),
+            "k": torch.tensor([-1, 1 << 40], dtype=torch.int64), "m": torch.tensor([True])}
+    checkpoint.save(str(tmp_path / "a"), 0, tree)
+    on_card = checkpoint.restore(str(tmp_path / "a"),
+                                 {k: torch.zeros_like(v, device=dev) for k, v in tree.items()})
+    assert all(v.device.type == "cuda" and torch.equal(v.cpu(), tree[k])
+               for k, v in on_card.items())
+    checkpoint.save(str(tmp_path / "b"), 0, on_card)
+    back = checkpoint.restore(str(tmp_path / "b"), {k: torch.zeros_like(v) for k, v in tree.items()})
+    assert all(torch.equal(v, tree[k]) for k, v in back.items())

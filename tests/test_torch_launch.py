@@ -51,8 +51,22 @@ def test_gloo_world_of_two_equals_reference(refs):
     assert ref[2]["num_records"] % 2 == 0
 
 
-@pytest.mark.parametrize("argv,item", [(["--dryrun"], "A10"),
-                                       (["--ckpt-dir", "ckpt"], "A11")])
+@pytest.mark.parametrize("argv,item", [(["--dryrun"], "A10")])
 def test_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         block.main(W.LAUNCH_ARGV + ["--device", "cpu"] + argv)
+
+
+def test_ckpt_dir_checkpoints_every_iteration(tmp_path):
+    """--ckpt-dir in a gloo world of two: every rank saves its local state
+    after each iteration under <dir>/rank_<r>; LATEST names the last
+    iteration, the last three are kept (the reference's default), and each
+    restores equal to the rank-local state of a direct run."""
+    for rank, out in enumerate(W.run_world("launch_ckpt", 2, tmp_path)):
+        n = out["n_iterations"]
+        assert n >= 2
+        assert out["rank_dir"].endswith(f"rank_{rank}")
+        assert out["saved"] == [(out["rank_dir"], it) for it in range(n)]
+        assert out["latest"] == n - 1
+        assert out["kept"] == list(range(max(0, n - 3), n))
+        assert out["restored_equal"] == {it: True for it in out["kept"]}
