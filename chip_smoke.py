@@ -133,7 +133,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       unscaled init is printed beside them; and, in a process of its own
       with deterministic kernels (``python -m repro_torch.training.smoke``),
       a run resumed from a checkpoint halfway bit-identical to the
-      uninterrupted run.
+      uninterrupted run;
+10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
+    run of each path under torch's sync debug mode, none of them timed:
+    SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
+    SERVE50K probe pass at client batch 8, a TINYLLAMA-SERVE decode step
+    and launch/train.py --dedup for two TINYLLAMA-TRAIN steps. Each prints
+    its total syncs, the syncs per profiler range and its ten heaviest
+    sites with their inventory reasons (``census`` lines); a run that
+    counts no sync, or a site of the port whose line carries no
+    ``# repro: noqa[R001]``/``noqa[R003]``, fails the phase.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` from the SYN1M HDB run; ``stream100k_delta_launches``,
@@ -234,7 +243,9 @@ def device_ms(fn, reps=REPS):
     has, on calls of hundreds of kernels, and on the compacting scatter of
     check_cms): the window is measured again; after the third, each call
     is profiled in a window of its own, and the calls are timed there if
-    every window saw the same device events, else it raises."""
+    every window saw the same device events; a round of such windows is
+    tried three times (the first window of a round has come up short),
+    then it raises."""
     from torch.profiler import ProfilerActivity, profile
     attempts = 3
     fn()
@@ -247,21 +258,23 @@ def device_ms(fn, reps=REPS):
         events = _kernel_events(prof)
         if events and len(events) % reps == 0:
             return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
-    windows = []
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        windows.append(_kernel_events(prof))
-    names = [sorted(e.name for e in w) for w in windows]
-    if names[0] and all(n == names[0] for n in names):
-        print(f"device_ms: {len(events)} device events over {reps} calls in one "
-              f"window, {attempts} times; timed in {reps} windows of one call "
-              f"({len(names[0])} events each)", flush=True)
-        return sum(e.time_range.elapsed_us() for w in windows for e in w) / reps / 1e3
+    for _ in range(attempts):
+        windows = []
+        for _ in range(reps):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            windows.append(_kernel_events(prof))
+        names = [sorted(e.name for e in w) for w in windows]
+        if names[0] and all(n == names[0] for n in names):
+            print(f"device_ms: {len(events)} device events over {reps} calls in one "
+                  f"window, {attempts} times; timed in {reps} windows of one call "
+                  f"({len(names[0])} events each)", flush=True)
+            return sum(e.time_range.elapsed_us() for w in windows for e in w) / reps / 1e3
     raise AssertionError(f"profiler saw {len(events)} device events over {reps} calls, "
-                         f"{attempts} times, and windows of one call saw "
-                         f"{[len(n) for n in names]}: {sorted(set(names[0]))[:8]}")
+                         f"{attempts} times, and {attempts} rounds of windows of one "
+                         f"call disagreed, the last {[len(n) for n in names]}: "
+                         f"{sorted(set(names[0]))[:8]}")
 
 
 def call_ms(fn, reps=REPS, inner=10):
@@ -888,6 +901,12 @@ def stream_keys(seed, n, card_n):
                                   torch.ones(ids.shape, dtype=torch.bool, device="cuda"))
 
 
+def stream100k_config():
+    """STREAM100K's HDB settings (benchmarks/bench_streaming.py)."""
+    from repro_torch.core import hdb
+    return hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 18)
+
+
 def stream100k(kernels):
     """Phase 5b: STREAM100K. The base ingest, a warm delta, then the timed
     delta with every launch count zeroed just before and read just after;
@@ -900,7 +919,7 @@ def stream100k(kernels):
     blocks as they stood after the timed delta)."""
     from repro_torch.core import hdb, pairs
     from repro_torch.streaming import BlockStore, DeltaBlocker
-    cfg = hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 18)
+    cfg = stream100k_config()
     n, d = STREAM_RECORDS, STREAM_DELTA
     total = n + 2 * d
     keys, valid = stream_keys(0, total, total)
@@ -1025,7 +1044,7 @@ def syn_stream(kernels, entities=SYN_STREAM_ENTITIES):
                              f"from the timed run ({launches})")
     print(f"SYN stream: the base and the deltas again on a twin pipeline, every "
           f"launch bit-identical to its plain version, same counts and last report "
-          f"({time.perf_counter() - t_check:.1f} s): {checked}", flush=True)
+          f"({time.perf_counter() - t_check:.1f} s): {checked}", flush=True)  # repro: noqa[R004] the replay's reports are host numpy
     del twin
     total_slots = pipe.store.candidate_pairs().total_slots
     batch, batch_s = synced(lambda: pipeline.dedup_corpus(
@@ -1188,7 +1207,7 @@ def table2(kernels, syn1m):
     launches = {k.name: k.launches for k in kernels}
     print_table2("SYN1M", rows, pmb_tri)
     print(f"table2 SYN1M: records={corpus.num_records} launches={launches}", flush=True)
-    print(f"phase 6: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"phase 6: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
     return launches
 
 
@@ -1535,7 +1554,7 @@ def mesh_four_ranks(syn1m, dcfg, single1m, stream_ref):
         mp.start_processes(mesh_rank, args=(MESH_RANKS, f"file://{tmp}/init", tmp,
                                             syn1m_path, dcfg, stream_path, parts, scfg),
                            nprocs=MESH_RANKS, start_method="spawn")
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0  # repro: noqa[R004] the spawned ranks have exited
         ranks = []
         for r in range(MESH_RANKS):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -1618,7 +1637,7 @@ def mesh_phase(kernels, syn1m, stream_ref):
     t_phase = time.perf_counter()
     launches, dcfg, single1m = mesh_one_rank(kernels, syn1m)
     torch.cuda.empty_cache()
-    print(f"phase 7b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"phase 7b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
     gloo_launches = mesh_four_ranks(syn1m, dcfg, single1m, stream_ref)
     print(f"phase 7: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
     return launches, gloo_launches
@@ -1667,16 +1686,14 @@ def serve_answers(svc):
     return [r.status for r in resp], rows
 
 
-def serving_service(kernels):
-    """Phase 8a. The store built through the write lane (launches counted),
-    a warm-up round a batch size, then the timed pass of every batch size
-    (launch counts zeroed before and read after each); returns the summed
-    probe launches and the ingest's."""
+def serve50k():
+    """SERVE50K at benchmarks/bench_serving.py's defaults: returns
+    ``service(device, n_shards=1)``, a DedupeService with the 50,000-record
+    store queued on its write lane, and ``probes(svc, b, rows)``, which
+    submits the first ``rows`` probe rows in client batches of ``b`` and
+    runs the service; and the probe rows (numpy u64 keys, validity)."""
     from repro_torch.core import hdb, u64
     from repro_torch.serving import DedupeService, ServiceConfig
-    from repro_torch.serving import smoke as serve_smoke
-    from repro_torch.streaming.delta import probe_jit_cache_sizes
-    t_phase = time.perf_counter()
     cfg = hdb.HDBConfig(max_block_size=64, max_iterations=6, cms_width=1 << 16)
     base = ServiceConfig(probe_slots=64, ingest_slots=1 << 20, max_read_queue=1 << 20,
                          max_write_queue=64)
@@ -1696,6 +1713,20 @@ def serving_service(kernels):
         for off in range(0, rows, b):
             svc.submit_probe("t", probe_k[off:off + b], probe_v[off:off + b])
         svc.run()
+
+    return service, probes, probe_k, probe_v
+
+
+def serving_service(kernels):
+    """Phase 8a. The store built through the write lane (launches counted),
+    a warm-up round a batch size, then the timed pass of every batch size
+    (launch counts zeroed before and read after each); returns the summed
+    probe launches and the ingest's."""
+    from repro_torch.serving import smoke as serve_smoke
+    from repro_torch.streaming.delta import probe_jit_cache_sizes
+    t_phase = time.perf_counter()
+    n, p = SERVE_RECORDS, SERVE_PROBES
+    service, probes, probe_k, probe_v = serve50k()
 
     svc = service("cuda")
     for k in kernels:
@@ -2001,7 +2032,7 @@ def training_full_width(kernels):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"phase 9a: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"phase 9a: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
     return launches
 
 
@@ -2049,7 +2080,104 @@ def training_check():
                              f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
     print(f"train check: deterministic resume on the card, bit-identical: "
           f"{proc.stdout.strip().splitlines()[-1]}", flush=True)
-    print(f"phase 9b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"phase 9b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
+# ---------------------------------------------------------------------------
+# phase 10: host-sync census (repro_torch.analysis.sync_census)
+# ---------------------------------------------------------------------------
+
+# sites printed a run, heaviest first
+CENSUS_TOP = 10
+CENSUS_TRAIN_STEPS = 2
+
+
+def census(tag, run):
+    """One untimed run of ``run`` under the sync census: prints the total,
+    the syncs per profiler range and the heaviest sites with their
+    inventory reasons; fails when the census saw no sync (the debug mode
+    did not report), a sync with no frame in the port, or a site that is
+    not in the inventory."""
+    from repro_torch.analysis.sync_census import SyncCensus
+    torch.cuda.synchronize()
+    with SyncCensus() as c:
+        run()
+    torch.cuda.synchronize()
+    for line in c.lines(tag, CENSUS_TOP):
+        print(line, flush=True)
+    if not c.armed or c.total == 0:
+        raise AssertionError(f"census {tag}: {c.total} syncs (armed {c.armed}): the "
+                             "sync debug mode reported nothing")
+    if c.outside:
+        raise AssertionError(f"census {tag}: syncs with no frame in the port at "
+                             f"{sorted(c.outside)}")
+    c.check()
+    return c
+
+
+def host_sync_census(syn1m):
+    """Phase 10: the census over one untimed run of each path: SYN1M
+    through dedup_corpus(blocker="hdb"), a STREAM100K delta, a SERVE50K
+    probe pass at client batch 8, a TINYLLAMA-SERVE decode step, and
+    launch/train.py --dedup for CENSUS_TRAIN_STEPS steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hdb
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import smoke as serve_smoke
+    from repro_torch.streaming import BlockStore, DeltaBlocker
+    t_phase = time.perf_counter()
+    totals = {}
+
+    corpus = moved(*syn1m, "cuda")[0]
+    totals["SYN1M"] = census("SYN1M hdb", lambda: pipeline.dedup_corpus(
+        corpus, hdb.HDBConfig(max_block_size=200), blocker="hdb", device="cuda")).total
+    del corpus
+    torch.cuda.empty_cache()
+
+    n, d = STREAM_RECORDS, STREAM_DELTA
+    keys, valid = stream_keys(0, n + 2 * d, n + 2 * d)
+    blk = DeltaBlocker(BlockStore(stream100k_config(), device="cuda"))
+    blk.ingest_keys(keys[:n], valid[:n])
+    blk.ingest_keys(keys[n:n + d], valid[n:n + d])
+    totals["STREAM100K"] = census("STREAM100K delta", lambda: blk.ingest_keys(
+        keys[n + d:], valid[n + d:])).total
+    del blk, keys, valid
+
+    service, probes = serve50k()[:2]
+    svc = service("cuda")
+    svc.run()
+    probes(svc, SERVE_CHECKED_BATCH, rows=SERVE_CHECKED_BATCH)
+    totals["SERVE50K"] = census(f"SERVE50K b={SERVE_CHECKED_BATCH}",
+                                lambda: probes(svc, SERVE_CHECKED_BATCH)).total
+    del svc
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for uid, prompt, max_new in serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS,
+                                                         LM_MAX_NEW):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
+    eng.step()  # admits (prefills) every slot
+    totals["TINYLLAMA-SERVE"] = census("TINYLLAMA-SERVE decode step", eng.step).total
+    del model, eng
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_census_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(CENSUS_TRAIN_STEPS), "--dedup",
+                "--ckpt-every", str(CENSUS_TRAIN_STEPS + 1), "--ckpt-dir", root]
+        totals["TINYLLAMA-TRAIN"] = census(
+            f"TINYLLAMA-TRAIN train.main --steps {CENSUS_TRAIN_STEPS} --dedup",
+            lambda: train.main(argv)).total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"census: syncs a run {totals}; every site in the inventory", flush=True)
+    print(f"phase 10: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
 def main() -> int:
@@ -2066,7 +2194,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all()
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)  # repro: noqa[R004] nvcc builds on the host
 
     smoke_pipeline()
     kernels = all_kernels()
@@ -2092,12 +2220,14 @@ def main() -> int:
     table2_launches = table2(kernels, syn1m)
     torch.cuda.empty_cache()
     mesh_launches, mesh_gloo_launches = mesh_phase(kernels, syn1m, stream_ref)
-    del syn1m, stream_ref
+    del stream_ref
     torch.cuda.empty_cache()
     serve_probe_launches, serve_ingest_launches = serving_service(kernels)
     serving_lm()
     train_launches = training_full_width(kernels)
     training_check()
+    host_sync_census(syn1m)
+    del syn1m
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["stream100k_delta_launches"] = stream_launches[row["name"]]

@@ -44,15 +44,15 @@ def threshold_blocking(keys: torch.Tensor, valid: torch.Tensor,
     keys, valid = keys.to(dev), valid.to(dev)
     sizes = _exact_sizes(keys, valid)
     accepted = valid & (sizes <= max_block_size) & (sizes >= 2)
-    ridx, kidx = torch.nonzero(accepted, as_tuple=True)
+    ridx, kidx = torch.nonzero(accepted, as_tuple=True)  # repro: noqa[R001] accepted entries to the host BlockingResult
     key64 = u64.to_numpy_u64(keys[ridx, kidx])
     stats = IterationStats(
-        iteration=0, n_live_keys=int(valid.sum()), n_right_cms=0,
+        iteration=0, n_live_keys=int(valid.sum()), n_right_cms=0,  # repro: noqa[R001] IterationStats fields are host ints
         n_right_exact=ridx.shape[0], n_dropped_similarity=0,
         n_dropped_max_keys=0, n_duplicate_blocks=0, n_surviving_oversized=0,
         n_surviving_entries=0, rep_overflow=0)
     return BlockingResult(
-        rids=ridx.cpu().numpy().astype(np.int64),
+        rids=ridx.cpu().numpy().astype(np.int64),  # repro: noqa[R001] BlockingResult is host numpy
         key_hi=(key64 >> np.uint64(32)).astype(np.uint32),
         key_lo=(key64 & np.uint64(u64.MASK32)).astype(np.uint32),
         stats=[stats],

@@ -98,7 +98,7 @@ def gather_rows(sh: sharding.Shards, x: torch.Tensor) -> torch.Tensor:
     dev = x.device
     counts = torch.empty(sh.n_shards, dtype=torch.int64, device=dev)
     tdist.all_gather_into_tensor(
-        counts, torch.tensor([x.shape[0]], dtype=torch.int64, device=dev),
+        counts, torch.tensor([x.shape[0]], dtype=torch.int64, device=dev),  # repro: noqa[R001] the row count sizes the gather
         group=sh.group)
     counts = counts.tolist()
     width = max(counts)
@@ -142,7 +142,7 @@ def make_hdb_step(cfg: HDBConfig, mesh, axis_names: Sequence[str] = ("data",),
             # reference routes every lane with the dropped ones at owner
             # n_shards; they take no bucket rank, so routing only the kept
             # lanes, in order, fills the same buckets
-            kept = torch.nonzero(keep.reshape(-1)).flatten()
+            kept = torch.nonzero(keep.reshape(-1)).flatten()  # repro: noqa[R001] compacts the live entries
             kkey = flat_key[kept]
             rid = sh.shard * n_loc + kept // max(k, 1)
             owner = routing.owner_u64(kkey, n, routing.KEY_OWNER_SEED)
@@ -154,7 +154,7 @@ def make_hdb_step(cfg: HDBConfig, mesh, axis_names: Sequence[str] = ("data",),
             # owner side: exact counts and fingerprints by one local sort
             fk, fr = bkey.reshape(-1), brid.reshape(-1)
             live = ~u64.is_sentinel(fk)
-            skey, (srid,) = segments.sort_by_key(fk[live], [fr[live]])
+            skey, (srid,) = segments.sort_by_key(fk[live], [fr[live]])  # repro: noqa[R001] compacts the live entries
             sizes = segments.segment_counts(skey)
             xors = segments.segment_xor(skey, hashing.fingerprint_rid(srid))
             reps = segments.segment_starts(skey) & (sizes > cfg.max_block_size)
@@ -165,7 +165,7 @@ def make_hdb_step(cfg: HDBConfig, mesh, axis_names: Sequence[str] = ("data",),
 
             # dedupe: the first rcap representatives (key order) route by
             # membership fingerprint
-            rep_pos = torch.nonzero(reps).flatten()
+            rep_pos = torch.nonzero(reps).flatten()  # repro: noqa[R001] representatives, capped on the host
             rep_overflow = max(rep_pos.shape[0] - rcap, 0)
             rep_pos = rep_pos[:rcap]
             r_x = xors[rep_pos]
@@ -176,7 +176,7 @@ def make_hdb_step(cfg: HDBConfig, mesh, axis_names: Sequence[str] = ("data",),
             bx, bsz, bk, blive = routing.exchange(sh.group, bx, bsz, bk, blive)
             got = blive.reshape(-1) > 0
             (t_k, t_sz), n_dup, survivor = hdb.dedupe_oversized_reps(
-                bx.reshape(-1)[got], bsz.reshape(-1)[got], bk.reshape(-1)[got])
+                bx.reshape(-1)[got], bsz.reshape(-1)[got], bk.reshape(-1)[got])  # repro: noqa[R001] compacts the received representatives
 
             # broadcast the survivor counts map: gather, then sort by key
             mine = ~u64.is_sentinel(t_k)
@@ -206,7 +206,7 @@ def make_hdb_step(cfg: HDBConfig, mesh, axis_names: Sequence[str] = ("data",),
             n_dropped_mk, n_dup, survivor.sum(), survive.sum(),
             route_overflow + x_overflow + rep_overflow]).to(torch.int64)
         tdist.all_reduce(local, group=sh.group)
-        stats = dict(zip(_STATS, local.tolist()))
+        stats = dict(zip(_STATS, local.tolist()))  # repro: noqa[R001] IterationStats are host ints
         return accepted, (new_key, new_valid, new_psize), stats
 
     return step
@@ -249,10 +249,10 @@ def distributed_hashed_dynamic_blocking(
         with record_function("hdb.accept"):
             # the reference's np.nonzero over the global (N, K) array:
             # each shard's local nonzero, gathered in shard order
-            ridx, kidx = torch.nonzero(accepted, as_tuple=True)
+            ridx, kidx = torch.nonzero(accepted, as_tuple=True)  # repro: noqa[R001] accepted entries to the host BlockingResult
             acc = gather_rows(sh, torch.stack([ridx + sh.shard * n_loc,
                                                keys[ridx, kidx]], 1))
-            acc_rid.append(acc[:, 0].cpu().numpy())
+            acc_rid.append(acc[:, 0].cpu().numpy())  # repro: noqa[R001] accepted entries to the host BlockingResult
             acc_key.append(u64.to_numpy_u64(acc[:, 1]))
         st = IterationStats(iteration=it, **stats)
         all_stats.append(st)
@@ -331,7 +331,7 @@ def _shard_rounds(blocks: pairs_mod.Blocks, slots: Optional[torch.Tensor],
 
 def _pairset_from_words(words: torch.Tensor, exact: bool, total: int) -> pairs_mod.PairSet:
     a, b, s = pairs_kernels.unpack_words(words)
-    host = tuple(x.cpu().numpy() for x in (a, b, s))
+    host = tuple(x.cpu().numpy() for x in (a, b, s))  # repro: noqa[R001] the PairSet is host numpy
     return pairs_mod.PairSet(*host, exact, total, device_a=a.to(torch.int32),
                              device_b=b.to(torch.int32))
 
@@ -389,7 +389,7 @@ def dedupe_pairs_distributed(
             overflow += ovf
         # one deferred sync: the fallback discards the buckets anyway
         tdist.all_reduce(overflow, group=sh.group)
-    if int(overflow):
+    if int(overflow):  # repro: noqa[R001] an overflow picks the fallback
         warnings.warn(
             f"routed pair dedupe overflowed a bucket (cap {cap}, slack "
             f"{route_slack}); falling back to the single-device engine — "
@@ -403,10 +403,10 @@ def dedupe_pairs_distributed(
         # sentinel lanes never win: sort only the pairs this shard received
         words = torch.cat(received)
         sw, winner = pairs_kernels.dedupe_packed_device(
-            words[~u64.is_sentinel(words)], "radix", n_passes)
+            words[~u64.is_sentinel(words)], "radix", n_passes)  # repro: noqa[R001] drops the sentinel lanes
         # shard winner sets are disjoint: one sort of the gathered winners
         # restores the canonical global (a, b) order
-        words = sort_ops.sort_words(gather_rows(sh, sw[winner]), backend="radix",
+        words = sort_ops.sort_words(gather_rows(sh, sw[winner]), backend="radix",  # repro: noqa[R001] compacts the winners
                                     n_passes=n_passes)
     return _pairset_from_words(words, exact, total)
 

@@ -97,7 +97,7 @@ class BlockingResult:
 
 
 def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return torch.tensor(value, dtype=torch.float32, device=device)  # repro: noqa[R001] a float32 scalar operand, one upload
 
 
 def rough_classify(cfg: HDBConfig, s: torch.Tensor, valid: torch.Tensor,
@@ -166,7 +166,7 @@ def exactly_count_and_dedupe(cfg: HDBConfig, key: torch.Tensor,
     """
     n, k = keep.shape
     nk = n * k
-    idx = torch.nonzero(keep.reshape(-1)).flatten()
+    idx = torch.nonzero(keep.reshape(-1)).flatten()  # repro: noqa[R001] compacts the live entries
     skey, (srid, sidx) = segments.sort_by_key(key.reshape(-1)[idx],
                                               [idx // max(k, 1), idx])
     live = ~u64.is_sentinel(skey)
@@ -177,7 +177,7 @@ def exactly_count_and_dedupe(cfg: HDBConfig, key: torch.Tensor,
     over = live & (sizes > cfg.max_block_size)
     right_exact_sorted = live & ~over
 
-    rep_pos = torch.nonzero(segments.segment_starts(skey) & over).flatten()
+    rep_pos = torch.nonzero(segments.segment_starts(skey) & over).flatten()  # repro: noqa[R001] representatives, capped on the host
     rep_overflow = max(rep_pos.shape[0] - cfg.rep_capacity, 0)
     rep_pos = rep_pos[:cfg.rep_capacity]
     table, n_dup, survivor = dedupe_oversized_reps(
@@ -221,8 +221,8 @@ def intersect_keys(cfg: HDBConfig, key: torch.Tensor, survive: torch.Tensor,
     ok = survive.gather(1, order) & ~row_dead[:, None]
 
     ii, jj = np.triu_indices(ko, 1)
-    ii = torch.from_numpy(ii).to(key.device)
-    jj = torch.from_numpy(jj).to(key.device)
+    ii = torch.from_numpy(ii).to(key.device)  # repro: noqa[R001] the triu pair table, uploaded
+    jj = torch.from_numpy(jj).to(key.device)  # repro: noqa[R001] the triu pair table, uploaded
     # order-canonical combine (the hash64 combine kernel on the card)
     new_key = hash64_ops.combine64(k_s[:, ii], k_s[:, jj])
     new_psize = torch.minimum(sz_s[:, ii], sz_s[:, jj])
@@ -259,7 +259,7 @@ def hdb_iteration(cfg: HDBConfig, keys: torch.Tensor, valid: torch.Tensor,
         "n_surviving_oversized": n_survivors,
         "n_surviving_entries": survive.sum(),
     }
-    stats = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
+    stats = dict(zip(stats, torch.stack(list(stats.values())).tolist()))  # repro: noqa[R001] IterationStats are host ints
     stats["rep_overflow"] = rep_overflow
     return accepted, (new_key, new_valid, new_psize), stats
 
@@ -287,8 +287,8 @@ def hashed_dynamic_blocking(keys: torch.Tensor, valid: torch.Tensor,
         accepted, (new_keys, new_valid, new_psize), stats = hdb_iteration(
             cfg, keys, valid, psize)
         with record_function("hdb.accept"):
-            ridx, kidx = torch.nonzero(accepted, as_tuple=True)
-            acc_rid.append(ridx.cpu().numpy().astype(np.int64))
+            ridx, kidx = torch.nonzero(accepted, as_tuple=True)  # repro: noqa[R001] accepted entries to the host BlockingResult
+            acc_rid.append(ridx.cpu().numpy().astype(np.int64))  # repro: noqa[R001] accepted entries to the host BlockingResult
             acc_key.append(u64.to_numpy_u64(keys[ridx, kidx]))
         st = IterationStats(iteration=it, **stats)
         all_stats.append(st)

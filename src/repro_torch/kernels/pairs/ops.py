@@ -126,8 +126,8 @@ def dedupe_packed_device(words: torch.Tensor, sort_backend: str = "comparator",
 
 def unpack_words(words: torch.Tensor):
     """Valid sort words -> (a, b, src_size) int64 on the same device."""
-    a = words >> (PACK_RID_BITS + _PACK_SIZE_BITS)
-    b = (words >> _PACK_SIZE_BITS) & _RID_MASK
+    a = words >> (PACK_RID_BITS + _PACK_SIZE_BITS)  # repro: noqa[R002] 62-bit words: >> is logical
+    b = (words >> _PACK_SIZE_BITS) & _RID_MASK  # repro: noqa[R002] 62-bit words: >> is logical
     return a, b, _SIZE_MASK - (words & _SIZE_MASK)
 
 

@@ -58,7 +58,7 @@ def digit_of(words: torch.Tensor, q: int, bits: int) -> torch.Tensor:
     The mask after the arithmetic shift keeps exactly those bits, so the
     sentinel ``-1`` has every digit all ones.
     """
-    return (words >> (q * DIGIT_BITS)) & ((1 << bits) - 1)
+    return (words >> (q * DIGIT_BITS)) & ((1 << bits) - 1)  # repro: noqa[R002] masked below 64 - shift
 
 
 def _check_digit(q: int, bits: int) -> None:
@@ -77,7 +77,7 @@ def _check_words(words: torch.Tensor) -> None:
 def digit_counts_torch(words: torch.Tensor, n_digits: int,
                        last_bits: int) -> torch.Tensor:
     """Plain version of ``digit_counts``: one bincount a digit position."""
-    rows = [torch.bincount(digit_of(words, q, DIGIT_BITS if q < n_digits - 1
+    rows = [torch.bincount(digit_of(words, q, DIGIT_BITS if q < n_digits - 1  # repro: noqa[R001] plain version, the CPU path
                                     else last_bits), minlength=RADIX)
             for q in range(n_digits)]
     return torch.stack(rows).to(torch.int32)

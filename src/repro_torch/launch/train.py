@@ -121,20 +121,20 @@ def main(argv=None) -> TrainRun:
             losses.append(metrics["loss"])
             monitor.end_step(step)
             if step % 10 == 0:
-                print(f"[train] step {step} loss {float(metrics['loss']):.4f}")
+                print(f"[train] step {step} loss {float(metrics['loss']):.4f}")  # repro: noqa[R001] the loss printed every 10 steps
             if (step + 1) % args.ckpt_every == 0 or preempt.requested:
                 t_save = time.perf_counter()
                 path = checkpoint.save(args.ckpt_dir, step + 1, state)
-                saves.append((step + 1, time.perf_counter() - t_save,
+                saves.append((step + 1, time.perf_counter() - t_save,  # repro: noqa[R004] save copies every leaf to the host first
                               os.path.getsize(os.path.join(path, "arrays.npz"))))
                 if preempt.requested:
                     print("[train] preempted; checkpoint written")
                     break
     finally:
         preempt.uninstall()
-    losses = [float(x) for x in losses]
+    losses = [float(x) for x in losses]  # repro: noqa[R001] the losses to floats once, after the loop
     if on_card:
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # repro: noqa[R001] the step events are read after the loop
         step_ms = [a.elapsed_time(b) for a, b in marks]
     else:
         step_ms = [(b - a) * 1e3 for a, b in marks]

@@ -58,7 +58,7 @@ class ServingEngine:
         self.results: List[Result] = []
 
     def _step(self, tokens: np.ndarray):
-        tok = torch.from_numpy(tokens).to(self.model.device)
+        tok = torch.from_numpy(tokens).to(self.model.device)  # repro: noqa[R001] the host tokens, uploaded
         logits, self.caches = self.model.decode_step(tok, self.caches)
         return logits
 
@@ -98,7 +98,7 @@ class ServingEngine:
             return
         logits = self._step(self.tokens)
         # argmax breaks ties at the first index, as jnp.argmax does
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy().astype(np.int32)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy().astype(np.int32)  # repro: noqa[R001] sampled tokens to the host scheduler
         for slot, req in enumerate(self.slot_req):
             if req is None:
                 continue

@@ -82,13 +82,13 @@ def engine_run(model, requests, slots: int, max_len: int) -> Dict:
     first = np.zeros((slots, 1), np.int32)
     for i, (_, prompt, _) in enumerate(requests[:slots]):
         first[i, 0] = prompt[0]
-    logits, _ = model.decode_step(torch.from_numpy(first).to(model.device),
+    logits, _ = model.decode_step(torch.from_numpy(first).to(model.device),  # repro: noqa[R001] a check helper's upload
                                   model.init_caches(slots, max_len))
     eng = ServingEngine(model, batch_slots=slots, max_len=max_len)
     for uid, prompt, max_new in requests:
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
     tokens = {r.uid: r.tokens for r in eng.run()}
-    return {"tokens": tokens, "pos": eng.pos, "first_logits": logits.float().cpu()}
+    return {"tokens": tokens, "pos": eng.pos, "first_logits": logits.float().cpu()}  # repro: noqa[R001] a check helper's host copy
 
 
 def lm_requests(vocab: int, n: int, max_new: int, lo: int = 2, hi: int = 33,

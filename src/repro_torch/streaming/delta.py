@@ -92,7 +92,7 @@ def host_u64(keys) -> np.ndarray:
 def host_bool(x) -> np.ndarray:
     """A mask (a tensor or an array) as a host numpy bool array."""
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy().astype(bool)
+        return x.cpu().numpy().astype(bool)  # repro: noqa[R001] the helper's job: a mask to host numpy
     return np.asarray(x, bool)
 
 
@@ -168,7 +168,7 @@ class DeltaBlocker:
         self.routed_fallback_total = 0
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)  # repro: noqa[R001] the host store's state, uploaded
 
     # ------------------------------------------------------------------
     # ingest
@@ -232,7 +232,7 @@ class DeltaBlocker:
         # every output above is host numpy, so the device work is done
         report = IngestReport(num_records=n, pairs_added=added,
                               pairs_retracted=retracted, levels=reports,
-                              seconds=time.perf_counter() - t0)
+                              seconds=time.perf_counter() - t0)  # repro: noqa[R004] the delta's outputs are host numpy
         logger.debug("[streaming] ingest n=%d pairs+%d pairs-%d %.3fs", n,
                      len(added[0]), len(retracted[0]), report.seconds)
         return report
@@ -339,8 +339,8 @@ class DeltaBlocker:
                     cfg, self._up(est),
                     torch.ones(n_aff, dtype=torch.bool, device=self.device),
                     self._up(state.psize[aff]))
-                right = right_t.cpu().numpy()
-                keepb = keep_t.cpu().numpy()
+                right = right_t.cpu().numpy()  # repro: noqa[R001] the host store takes the flags
+                keepb = keep_t.cpu().numpy()  # repro: noqa[R001] the host store takes the flags
                 old_keep = state.keep[aff]
                 erid = np.broadcast_to(
                     state.rids[:, None], state.valid.shape)[aff]
@@ -373,7 +373,7 @@ class DeltaBlocker:
                     u64.from_numpy_u64(o_fp, self.device),
                     self._up(o_cnt.astype(np.int32)),
                     u64.from_numpy_u64(o_key, self.device))
-                surv_flags = surv.cpu().numpy()
+                surv_flags = surv.cpu().numpy()  # repro: noqa[R001] the host store takes the flags
             # runs even with no over-keys: stale flags from the previous
             # ingest must clear
             sv_changed = state.set_survivors(o_key, surv_flags)
@@ -437,8 +437,8 @@ class DeltaBlocker:
                     cfg, u64.from_numpy_u64(state.key64[dirty], self.device),
                     self._up(state.survive[dirty]), self._up(state.size[dirty]))
                 next_repl = (state.rids[dirty], u64.to_numpy_u64(nkey),
-                             nvalid.cpu().numpy(),
-                             npsize.cpu().numpy().astype(np.int32))
+                             nvalid.cpu().numpy(),  # repro: noqa[R001] the host store takes the keys
+                             npsize.cpu().numpy().astype(np.int32))  # repro: noqa[R001] the host store takes the keys
 
         rep = LevelReport(level=lev, n_replaced=n_replaced,
                           n_reclassified=n_aff,
@@ -636,7 +636,7 @@ class DeltaBlocker:
                                smat_t[ra[off:off + _JOIN_CHUNK]],
                                kmat_t[rb[off:off + _JOIN_CHUNK]])
                for off in range(0, len(pair_pack), _JOIN_CHUNK)]
-        return torch.cat(out).cpu().numpy().astype(np.int64)
+        return torch.cat(out).cpu().numpy().astype(np.int64)  # repro: noqa[R001] the ledger is host numpy
 
     # ------------------------------------------------------------------
     # query
@@ -730,8 +730,8 @@ class DeltaBlocker:
             right_t, keep_t, _ = hdb_mod.rough_classify(
                 cfg, self._up(est.astype(np.int32)), self._up(valid),
                 self._up(psize))
-            right = right_t.cpu().numpy()
-            keepb = keep_t.cpu().numpy()
+            right = right_t.cpu().numpy()  # repro: noqa[R001] the probe walk's state is host numpy
+            keepb = keep_t.cpu().numpy()  # repro: noqa[R001] the probe walk's state is host numpy
             cnt, surv, _ = state.lookup(k64)
             if include_probe:
                 cnt = cnt + valid.astype(cnt.dtype)
@@ -766,8 +766,8 @@ class DeltaBlocker:
                 cfg, u64.from_numpy_u64(k64, self.device), self._up(survive),
                 self._up(size))
             k64 = u64.to_numpy_u64(nkey)
-            valid = nvalid.cpu().numpy()
-            psize = npsize.cpu().numpy().astype(np.int32)
+            valid = nvalid.cpu().numpy()  # repro: noqa[R001] the probe walk's state is host numpy
+            psize = npsize.cpu().numpy().astype(np.int32)  # repro: noqa[R001] the probe walk's state is host numpy
         if cand_probe:
             cp = np.concatenate(cand_probe)
             cr = np.concatenate(cand_rid)

@@ -158,9 +158,9 @@ def reduce_by_key(keys: np.ndarray, cnt: np.ndarray, fp: np.ndarray
 def cms_gather(cms: torch.Tensor, idx: np.ndarray) -> np.ndarray:
     """Per-depth bucket counts of a device sketch: host (depth,
     *entry_shape) int32."""
-    idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(cms.device).long()
+    idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(cms.device).long()  # repro: noqa[R001] host sketch indices, uploaded
     got = torch.stack([cms[j][idx_t[j]] for j in range(idx_t.shape[0])])
-    return got.cpu().numpy()
+    return got.cpu().numpy()  # repro: noqa[R001] sketch counts back to the host store
 
 
 @dataclasses.dataclass
@@ -202,7 +202,7 @@ class LevelKeys:
         if sign not in (1, -1):
             raise ValueError(f"sign must be +1 or -1, got {sign}")
         dev = self.cms.device
-        idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
+        idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)  # repro: noqa[R001] host sketch indices, uploaded
         live = torch.ones(idx_t.shape[1], dtype=torch.bool, device=dev)
         delta = sketches.cms_build_indices(self.cms_cfg, idx_t, live)
         fold = sketches.cms_fold if sign > 0 else sketches.cms_subtract
