@@ -115,6 +115,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       8 slots, 32 new tokens each, max_len 1024, timed with CUDA events;
       ten more decode steps profiled; then the same widths at 2 layers in float32 (TF32 off) on cuda and
       cpu: equal tokens, first-step logits within 1e-3;
+   c. the MoE family and MLA: OLMOE-SERVE (olmoe-1b-7b as published) and
+      DEEPSEEK-SERVE (deepseek-v3-671b at its published widths cut to 4
+      layers: 3 dense-FFN MLA layers, 1 MoE layer, the MTP head), each
+      with its parameter count checked on the meta device, phase 8b's
+      traffic timed with CUDA events (the dropped tokens summed), ten
+      decode steps profiled and one Model.loss forward at full width
+      (finite ce, moe_aux, mtp_ce); then cuda == cpu in float32 (TF32
+      off) at olmoe's widths on 2 layers and at deepseek's reduced
+      config: first-step logits within 1e-3 and equal tokens, or tokens
+      that part only after a routing near tie (margin under 1e-5),
+      printed;
 9. training (``repro_torch.launch.train``, ``repro_torch.training``):
    a. the launcher on tinyllama-1.1b as published (bfloat16, seeded
       weights on the card, remat "full"), --dedup at its defaults (3,000
@@ -134,11 +145,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       with deterministic kernels (``python -m repro_torch.training.smoke``),
       a run resumed from a checkpoint halfway bit-identical to the
       uninterrupted run;
+   c. OLMOE-TRAIN: olmoe-1b-7b's widths at 15 of 16 layers (bfloat16,
+      remat "full") through the train step on the launcher's deduplicated
+      loader (batch 8, seq 256): 6 steps, steps 2-6 timed with CUDA
+      events, every loss finite, moe_aux and moe_dropped a step, peak
+      memory; two more steps profiled; then both families' reduced
+      configs in float32 (TF32 off) on cuda and cpu: 3 train steps give
+      loss, ce, moe_aux and grad_norm within rtol 1e-4;
 10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
     run of each path under torch's sync debug mode, none of them timed:
     SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
-    SERVE50K probe pass at client batch 8, a TINYLLAMA-SERVE decode step
-    and launch/train.py --dedup for two TINYLLAMA-TRAIN steps. Each prints
+    SERVE50K probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
+    launch/train.py --dedup for two TINYLLAMA-TRAIN steps, an OLMOE-SERVE
+    and a DEEPSEEK-SERVE decode step and two OLMOE-TRAIN steps. Each prints
     its total syncs, the syncs per profiler range and its ten heaviest
     sites with their inventory reasons (``census`` lines); a run that
     counts no sync, or a site of the port whose line carries no
@@ -1842,25 +1861,45 @@ def serving_service(kernels):
     return probe_launches, ingest_launches
 
 
-def serving_lm():
-    """Phase 8b: tinyllama-1.1b at full width (bfloat16, seeded weights on
-    the card) through the ServingEngine, timed with CUDA events; then the
-    same widths at LM_CHECK_LAYERS layers in float32 on cuda and cpu."""
-    from repro_torch.configs import get_config
+def lm_param_count(cfg):
+    """``cfg.total_params()`` plus the weights it leaves out: two norms a
+    layer and the final one, MLA's q_norm and kv_norm a layer, and the MTP
+    head (one more layer with the dense FFN, its norms, and the (2d, d)
+    ``mtp_proj``)."""
+    d = cfg.d_model
+    per_layer = 2 * d + (cfg.q_lora_rank + cfg.kv_lora_rank if cfg.use_mla else 0)
+    n = cfg.total_params() + cfg.num_layers * per_layer + d
+    if cfg.mtp:
+        head = dataclasses.replace(cfg, num_layers=1, moe_num_experts=0, vocab_size=0,
+                                   mtp=False)
+        n += head.total_params() + per_layer + 2 * d * d
+    return n
+
+
+def built_lm(tag, cfg):
+    """(model, parameter count): ``cfg``'s model on the card with weights
+    from generator seed 0, its parameter count first held on the meta
+    device to ``lm_param_count``."""
     from repro_torch.models.model import build_model
-    from repro_torch.serving import Request, ServingEngine
-    from repro_torch.serving import smoke as serve_smoke
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
     n_params = sum(w.numel() for w in build_model(cfg, device="meta").parameters())
-    want_params = cfg.total_params() + 2 * cfg.num_layers * cfg.d_model + cfg.d_model
-    if n_params != want_params:
-        raise AssertionError(f"lm: {n_params} parameters, want {want_params}")
+    if n_params != lm_param_count(cfg):
+        raise AssertionError(f"{tag}: {n_params} parameters, want {lm_param_count(cfg)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
-    reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_REQUESTS, LM_MAX_NEW)
+    return model, n_params
+
+
+def serve_timed(tag, model):
+    """LM_REQUESTS requests of phase 8b's traffic over LM_SLOTS slots
+    through a ServingEngine after a warm-up, timed with CUDA events; every
+    request must finish with LM_MAX_NEW tokens in range. Returns (engine,
+    served tokens, decode steps, the run's ms, wall seconds)."""
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import smoke as serve_smoke
+    vocab = model.cfg.vocab_size
+    reqs = serve_smoke.lm_requests(vocab, LM_REQUESTS, LM_MAX_NEW)
     serve_smoke.engine_run(model, [(0, reqs[0][1][:2], 2)], LM_SLOTS, LM_MAX_LEN)
     eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
     for uid, prompt, max_new in reqs:
@@ -1876,15 +1915,30 @@ def serving_lm():
     steps = eng.pos   # each decode step advances the shared pos by one
     tokens = [t for r in results for t in r.tokens]
     if not (len(results) == LM_REQUESTS and len(tokens) == LM_REQUESTS * LM_MAX_NEW
-            and all(0 <= t < cfg.vocab_size for t in tokens) and steps < LM_MAX_LEN):
-        raise AssertionError(f"lm: {len(results)} results, {len(tokens)} tokens, "
+            and all(0 <= t < vocab for t in tokens) and steps < LM_MAX_LEN):
+        raise AssertionError(f"{tag}: {len(results)} results, {len(tokens)} tokens, "
                              f"pos {steps} of max_len {LM_MAX_LEN}")
+    return eng, tokens, steps, start.elapsed_time(end), wall
+
+
+def serving_lm():
+    """Phase 8b: tinyllama-1.1b at full width (bfloat16, seeded weights on
+    the card) through the ServingEngine, timed with CUDA events; then the
+    same widths at LM_CHECK_LAYERS layers in float32 on cuda and cpu."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import smoke as serve_smoke
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model, n_params = built_lm("lm", cfg)
+    reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_REQUESTS, LM_MAX_NEW)
+    eng, tokens, steps, ms, wall = serve_timed("lm", model)
     print(f"lm: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.param_dtype}; {n_params} parameters, equal to "
           f"total_params plus the norms) served {LM_REQUESTS} requests over "
           f"{LM_SLOTS} slots: served_tokens={len(tokens)} decode_steps={steps} "
-          f"step_ms={start.elapsed_time(end) / steps} wall_s={wall} "
+          f"step_ms={ms / steps} wall_s={wall} "
           f"tokens_per_s={len(tokens) / wall} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()}", flush=True)
     # where a decode step's time goes: ten steps of the full batch, profiled
@@ -1917,6 +1971,191 @@ def serving_lm():
           f"(cpu run {cpu_s:.1f} s); first-step logits max_abs_err={err} "
           f"(tolerance {LM_LOGIT_ATOL})", flush=True)
     print(f"phase 8b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the MoE family and MLA with MTP (olmoe-1b-7b, deepseek-v3-671b)
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b as published; deepseek-v3-671b at its published widths cut
+# to MLA_SERVE_LAYERS layers, its 3 dense-FFN MLA layers and the first MoE
+# one (every layer kind, with the MTP head; 61 layers are 1.34 TB in
+# bfloat16). Both take phase 8b's traffic.
+MOE_ARCH = "olmoe-1b-7b"
+MLA_ARCH = "deepseek-v3-671b"
+MLA_SERVE_LAYERS = 4
+# Model.loss at full width on one sequence
+LOSS_BATCH, LOSS_SEQ = 1, 128
+# the cuda == cpu check: olmoe's widths at MOE_CHECK_LAYERS layers and
+# deepseek's reduced config in float32, TF32 off, over the first LM_SLOTS
+# requests with MOE_CHECK_NEW new tokens each (the cpu run reads olmoe's
+# 4.2 GB of float32 weights a step). Routing is discrete: a request's tokens
+# may part only where the two devices route a token differently and that
+# token's k-th and (k+1)-th router probabilities lie within
+# ROUTE_TIE_MARGIN
+MOE_CHECK_LAYERS = 2
+MOE_CHECK_NEW = 16
+ROUTE_TIE_MARGIN = 1e-5
+
+
+class MoEHooks:
+    """Forward hooks on every MoE layer of ``model``: ``dropped`` sums the
+    layers' dropped counts on the device; with ``route``, ``calls`` keeps
+    each layer call's top-k experts and the margin between each token's
+    k-th and (k+1)-th router probability (the router recomputed on the
+    layer's input, on its device, as ``moe.route`` computes it)."""
+
+    def __init__(self, model, route=False):
+        from repro_torch.models.moe import MoE
+        self.route = route
+        self.dropped = torch.zeros((), dtype=torch.int64, device=model.device)
+        self.calls = []
+        self.handles = [m.register_forward_hook(self._hook) for m in model.modules()
+                        if isinstance(m, MoE)]
+
+    def _hook(self, m, args, out):
+        self.dropped += out[2]
+        if self.route:
+            x = args[0]
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ m.router.float(),
+                                  dim=-1)
+            p, e = torch.sort(probs, dim=-1, descending=True, stable=True)
+            k = m.cfg.moe_top_k
+            self.calls.append((e[:, :k], p[:, k - 1] - p[:, k]))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def moe_serve_cell(tag, cfg):
+    """One MoE serving cell on the card: phase 8b's engine run with the
+    dropped count summed over it, ten profiled decode steps, and one
+    ``Model.loss`` forward on a (LOSS_BATCH, LOSS_SEQ) batch."""
+    from repro_torch.launch import specs
+    model, n_params = built_lm(tag, cfg)
+    hooks = MoEHooks(model)
+    eng, tokens, steps, ms, wall = serve_timed(tag, model)
+    hooks.remove()
+    print(f"{tag}: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
+          f"{f' + {cfg.moe_shared_experts} shared' if cfg.moe_shared_experts else ''}, "
+          f"expert d_ff {cfg.moe_d_ff}, dense d_ff {cfg.d_ff}, mla {cfg.use_mla}, mtp "
+          f"{cfg.mtp}, vocab {cfg.vocab_size}, {cfg.param_dtype}; {n_params} parameters, "
+          f"equal to total_params plus the norms and the MTP head) served {LM_REQUESTS} "
+          f"requests over {LM_SLOTS} slots: served_tokens={len(tokens)} "
+          f"decode_steps={steps} step_ms={ms / steps} wall_s={wall} "
+          f"tokens_per_s={len(tokens) / wall} moe_dropped={int(hooks.dropped)} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}", flush=True)
+    tok = torch.ones((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    _, wall10, busy10, launches10, _ = profile_breakdown(
+        lambda: [model.decode_step(tok, eng.caches) for _ in range(10)],
+        tag=f"{tag} decode x10")
+    print(f"{tag}: a profiled decode step: wall_ms={wall10 * 100} device_busy_ms="
+          f"{busy10 * 100} device_idle_share={1 - busy10 / wall10:.4f} "
+          f"launches={launches10 / 10}", flush=True)
+    del eng
+    batch = specs.train_batch(cfg, LOSS_SEQ, LOSS_BATCH, concrete=True,
+                              rng=np.random.default_rng(0), device="cuda")
+    with torch.no_grad():
+        _, metrics = model.loss(batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    needed = ["ce", "moe_aux"] + (["mtp_ce"] if cfg.mtp else [])
+    if not all(np.isfinite(metrics[k]) for k in needed):
+        raise AssertionError(f"{tag} loss: {metrics}")
+    print(f"{tag}: Model.loss at full width on a ({LOSS_BATCH}, {LOSS_SEQ}) batch: "
+          f"{metrics}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def routed_engine_run(model, reqs):
+    """``serving.smoke.engine_run`` with each decode step's greedy tokens
+    and each MoE layer call's routing kept (on the model's device)."""
+    from repro_torch.serving import smoke as serve_smoke
+    hooks = MoEHooks(model, route=True)
+    steps = []
+    decode = model.decode_step
+
+    def logged(token, caches, batch=None):
+        logits, caches = decode(token, caches, batch)
+        steps.append(logits[:, -1].argmax(-1))
+        return logits, caches
+
+    model.decode_step = logged
+    try:
+        out = serve_smoke.engine_run(model, reqs, LM_SLOTS, LM_MAX_LEN)
+    finally:
+        del model.decode_step
+        hooks.remove()
+    out["steps"] = [s.cpu() for s in steps]
+    out["calls"] = [(e.cpu(), m.cpu()) for e, m in hooks.calls]
+    return out
+
+
+def moe_check(tag, cfg):
+    """cuda == cpu for ``cfg`` (float32, TF32 off): the first-step logits
+    within LM_LOGIT_ATOL and equal tokens, or tokens that part only after
+    a routing near tie (the first routing difference at or before the
+    first decode step whose greedy tokens differ, its margin under
+    ROUTE_TIE_MARGIN), printed."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import smoke as serve_smoke
+    reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS, MOE_CHECK_NEW)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = routed_engine_run(card, reqs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    want, cpu_s = synced(lambda: routed_engine_run(cpu, reqs))
+    del card, cpu
+    torch.cuda.empty_cache()
+    err = float((got["first_logits"] - want["first_logits"]).abs().max())
+    if not (err <= LM_LOGIT_ATOL and got["pos"] == want["pos"]
+            and len(got["calls"]) == len(want["calls"])):
+        raise AssertionError(f"{tag} check: first-step logits max_abs_err {err}, pos "
+                             f"{got['pos']} / {want['pos']}")
+    differ = [u for u in want["tokens"] if got["tokens"][u] != want["tokens"][u]]
+    parted = ""
+    if differ:
+        step = next(i for i, (a, b) in enumerate(zip(got["steps"], want["steps"]))
+                    if not torch.equal(a, b))
+        n_layers = len(got["calls"]) // len(got["steps"])
+        call = next((i for i, ((a, _), (b, _)) in enumerate(zip(got["calls"], want["calls"]))
+                     if not torch.equal(a, b)), None)
+        if call is None or call // n_layers > step:
+            raise AssertionError(f"{tag} check: requests {differ} part at decode step "
+                                 f"{step} with no routing difference before it")
+        tok = int((got["calls"][call][0] != want["calls"][call][0]).any(-1).nonzero()[0])
+        margin = min(float(got["calls"][call][1][tok]), float(want["calls"][call][1][tok]))
+        parted = (f"; requests {differ} part at decode step {step}, after the routing of "
+                  f"token {tok} at step {call // n_layers} (MoE layer {call % n_layers}) "
+                  f"differs, its k-th / (k+1)-th probability margin {margin}")
+        if margin >= ROUTE_TIE_MARGIN:
+            raise AssertionError(f"{tag} check{parted} (not under {ROUTE_TIE_MARGIN})")
+    print(f"{tag} check: {cfg.name} at {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"float32 (TF32 off): {len(reqs)} requests, {MOE_CHECK_NEW} new tokens each, "
+          f"{len(got['steps'])} decode steps on cuda and cpu (cpu run {cpu_s:.1f} s); "
+          f"first-step logits max_abs_err={err} (tolerance {LM_LOGIT_ATOL}); tokens "
+          f"{'equal' if not differ else 'parted'}{parted}", flush=True)
+
+
+def serving_moe():
+    """Phase 8c: OLMOE-SERVE and DEEPSEEK-SERVE on the card, then cuda ==
+    cpu at small size."""
+    from repro_torch.configs import get_config, reduced_config
+    t_phase = time.perf_counter()
+    moe_serve_cell("OLMOE-SERVE", get_config(MOE_ARCH))
+    moe_serve_cell("DEEPSEEK-SERVE", dataclasses.replace(get_config(MLA_ARCH),
+                                                         num_layers=MLA_SERVE_LAYERS))
+    moe_check("olmoe", dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CHECK_LAYERS,
+                                           param_dtype="float32", compute_dtype="float32"))
+    moe_check("deepseek", reduced_config(MLA_ARCH))
+    print(f"phase 8c: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
 # ---------------------------------------------------------------------------
@@ -2083,6 +2322,122 @@ def training_check():
     print(f"phase 9b: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
+# the MoE train cell OLMOE-TRAIN: olmoe-1b-7b's widths through the train
+# step in bfloat16 with remat "full" and the launcher's batch (8 x 256)
+# from the loader over phase 9a's deduplicated corpus (launch/train.py
+# --dedup at its defaults). Cut to MOE_TRAIN_LAYERS of 16 layers, the
+# most that fit on an 80 GB card: at 12 bytes a parameter (bfloat16
+# weights and gradients, float32 moments) 16 layers hold 83.0 GB before
+# activations; 15 layers peaked at 81.8e9 bytes allocated on an H100 80GB
+# HBM3 (PERF.md section 4), and each layer adds 5.0e9. MOE_TRAIN_STEPS
+# steps, steps 2 on timed; TRAIN_PROFILED_STEPS more profiled. Then cuda
+# == cpu on both families' reduced configs, as phase 9b holds the dense
+# decoder
+MOE_TRAIN_LAYERS = 15
+MOE_TRAIN_STEPS = 6
+
+
+def moe_train_setup():
+    """(model, state, step function, loader) of OLMOE-TRAIN on the card,
+    with the launcher's optimizer settings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    ld = train.make_loader(cfg.vocab_size, "cuda")[0]
+    model, _ = built_lm("moe train", cfg)
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=3e-4, warmup_steps=min(20, MOE_TRAIN_STEPS // 4),
+                                           total_steps=MOE_TRAIN_STEPS))
+    return model, init_train_state(model, tcfg), make_train_step(model, tcfg), ld
+
+
+def training_moe():
+    """Phase 9c: OLMOE-TRAIN on the card, then cuda == cpu at the reduced
+    configs of both families."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import smoke
+    t_phase = time.perf_counter()
+    model, state, step_fn, ld = moe_train_setup()
+    cfg = model.cfg
+    marks, mets = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        x, y = ld.batch(i)
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        state, m = step_fn(state, {"tokens": x, "targets": y})
+        end.record()
+        marks.append((begin, end))
+        mets.append(m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    mets = [{k: float(v) for k, v in m.items()} for m in mets]
+    losses = [m["loss"] for m in mets]
+    if not (np.isfinite(losses).all() and int(state["step"]) == MOE_TRAIN_STEPS):
+        raise AssertionError(f"moe train: losses {losses}, step {int(state['step'])}")
+    timed = step_ms[1:]
+    tokens = ld.tokens_per_batch
+    print(f"moe train: {cfg.name} at {cfg.num_layers} of {get_config(MOE_ARCH).num_layers} layers (d_model {cfg.d_model}, "
+          f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}, {cfg.param_dtype}, remat "
+          f"{cfg.remat}) batch {ld.cfg.batch_size} seq {ld.cfg.seq_len} from the deduplicated "
+          f"loader: {MOE_TRAIN_STEPS} steps, losses {losses}; moe_aux "
+          f"{[m['moe_aux'] for m in mets]}; moe_dropped {[int(m['moe_dropped']) for m in mets]}"
+          f"; steps 2-{MOE_TRAIN_STEPS} step_ms={np.mean(timed)} (min {min(timed)} max "
+          f"{max(timed)}) tokens_per_s={tokens * len(timed) / (sum(timed) / 1e3)}; first "
+          f"step_ms={step_ms[0]}; max_memory_allocated={peak} of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory}", flush=True)
+
+    def steps():
+        nonlocal state
+        for i in range(TRAIN_PROFILED_STEPS):
+            x, y = ld.batch(MOE_TRAIN_STEPS + i)
+            state, _ = step_fn(state, {"tokens": x, "targets": y})
+
+    _, wall, busy, n_launch, ranges = profile_breakdown(
+        steps, tag=f"moe train x{TRAIN_PROFILED_STEPS}")
+    opt_s = ranges["train.optimizer"]
+    print(f"moe train: a profiled step: wall_ms={wall / TRAIN_PROFILED_STEPS * 1e3} "
+          f"device_busy_ms={busy / TRAIN_PROFILED_STEPS * 1e3} device_idle_share="
+          f"{1 - busy / wall:.4f} launches={n_launch / TRAIN_PROFILED_STEPS}; the "
+          f"optimizer's kernels device_ms={opt_s / TRAIN_PROFILED_STEPS * 1e3} "
+          f"({opt_s / busy:.4f} of the device time)", flush=True)
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in (MOE_ARCH, MLA_ARCH):
+            small = reduced_config(arch)
+            init = build_model(small, device="cpu").state_dict()
+            out = {}
+            for dev in ("cuda", "cpu"):
+                m = build_model(small, device=dev)
+                m.load_state_dict(init)
+                smoke.scale_qk(m, TRAIN_CHECK_QK_SCALE)
+                bs = smoke.batches(small, TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH,
+                                   TRAIN_CHECK_SEQ, dev)
+                out[dev] = smoke.train_steps(m, bs)[1]
+            keys = ("loss", "ce", "moe_aux", "grad_norm")
+            errs = [max(abs(g[k] - w[k]) / abs(w[k]) for k in keys)
+                    for g, w in zip(out["cuda"], out["cpu"])]
+            print(f"moe train check: {arch} reduced, qk scale {TRAIN_CHECK_QK_SCALE}, "
+                  f"{TRAIN_CHECK_STEPS} steps: cuda losses {[m['loss'] for m in out['cuda']]} "
+                  f"cpu {[m['loss'] for m in out['cpu']]}; moe_dropped cuda "
+                  f"{[m['moe_dropped'] for m in out['cuda']]} cpu "
+                  f"{[m['moe_dropped'] for m in out['cpu']]}; max relative error of "
+                  f"{', '.join(keys)} a step {errs}", flush=True)
+            if max(errs) > TRAIN_RTOL:
+                raise AssertionError(f"moe train check: {arch} cuda vs cpu {errs} over "
+                                     f"rtol {TRAIN_RTOL}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    print(f"phase 9c: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
 # ---------------------------------------------------------------------------
 # phase 10: host-sync census (repro_torch.analysis.sync_census)
 # ---------------------------------------------------------------------------
@@ -2118,15 +2473,12 @@ def census(tag, run):
 def host_sync_census(syn1m):
     """Phase 10: the census over one untimed run of each path: SYN1M
     through dedup_corpus(blocker="hdb"), a STREAM100K delta, a SERVE50K
-    probe pass at client batch 8, a TINYLLAMA-SERVE decode step, and
-    launch/train.py --dedup for CENSUS_TRAIN_STEPS steps."""
-    from repro_torch.configs import get_config
+    probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
+    launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an OLMOE-SERVE
+    and a DEEPSEEK-SERVE decode step, and CENSUS_TRAIN_STEPS OLMOE-TRAIN
+    steps."""
     from repro_torch.core import hdb
     from repro_torch.data import pipeline
-    from repro_torch.launch import train
-    from repro_torch.models.model import build_model
-    from repro_torch.serving import Request, ServingEngine
-    from repro_torch.serving import smoke as serve_smoke
     from repro_torch.streaming import BlockStore, DeltaBlocker
     t_phase = time.perf_counter()
     totals = {}
@@ -2153,18 +2505,35 @@ def host_sync_census(syn1m):
     totals["SERVE50K"] = census(f"SERVE50K b={SERVE_CHECKED_BATCH}",
                                 lambda: probes(svc, SERVE_CHECKED_BATCH)).total
     del svc
+    lm_census(totals)
+    print(f"census: syncs a run {totals}; every site in the inventory", flush=True)
+    print(f"phase 10: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
-    cfg = get_config(LM_ARCH)
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(0))
-    eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    for uid, prompt, max_new in serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS,
-                                                         LM_MAX_NEW):
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
-    eng.step()  # admits (prefills) every slot
-    totals["TINYLLAMA-SERVE"] = census("TINYLLAMA-SERVE decode step", eng.step).total
-    del model, eng
-    torch.cuda.empty_cache()
+
+def lm_census(totals):
+    """Phase 10's LM runs, each total into ``totals``: a TINYLLAMA-SERVE
+    decode step, launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an
+    OLMOE-SERVE and a DEEPSEEK-SERVE decode step, and CENSUS_TRAIN_STEPS
+    OLMOE-TRAIN steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import smoke as serve_smoke
+
+    def decode_census(tag, cfg):
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+        for uid, prompt, max_new in serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS,
+                                                             LM_MAX_NEW):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
+        eng.step()  # admits (prefills) every slot
+        totals[tag] = census(f"{tag} decode step", eng.step).total
+        del model, eng
+        torch.cuda.empty_cache()
+
+    decode_census("TINYLLAMA-SERVE", get_config(LM_ARCH))
 
     root = tempfile.mkdtemp(prefix="chip_smoke_census_")
     try:
@@ -2176,8 +2545,22 @@ def host_sync_census(syn1m):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"census: syncs a run {totals}; every site in the inventory", flush=True)
-    print(f"phase 10: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+    decode_census("OLMOE-SERVE", get_config(MOE_ARCH))
+    decode_census("DEEPSEEK-SERVE", dataclasses.replace(get_config(MLA_ARCH),
+                                                        num_layers=MLA_SERVE_LAYERS))
+    model, state, step_fn, ld = moe_train_setup()
+
+    def moe_steps():
+        nonlocal state
+        for i in range(CENSUS_TRAIN_STEPS):
+            x, y = ld.batch(i)
+            state, _ = step_fn(state, {"tokens": x, "targets": y})
+
+    totals["OLMOE-TRAIN"] = census(f"OLMOE-TRAIN {CENSUS_TRAIN_STEPS} train steps",
+                                   moe_steps).total
+    del model, state, step_fn
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2224,8 +2607,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_probe_launches, serve_ingest_launches = serving_service(kernels)
     serving_lm()
+    serving_moe()
     train_launches = training_full_width(kernels)
     training_check()
+    training_moe()
     host_sync_census(syn1m)
     del syn1m
     for row in rows:

@@ -1,13 +1,16 @@
-"""Phases 8a, 8b and 9a of one checkout's ``chip_smoke.py``, on one card.
+"""Some phases of one checkout's ``chip_smoke.py``, on one card.
 
-    python3 scripts/chip_phases.py CHECKOUT
+    python3 scripts/chip_phases.py CHECKOUT [NAME=INT ...] [PHASE ...]
 
-Runs the serving (8a), LM serving (8b) and training (9a) phases of the
-``chip_smoke.py`` in ``CHECKOUT`` (a ``git archive`` unpacked somewhere)
-against that checkout's own ``src/``, with its kernels built first. Run
-it for a parent and a change in turns within one call (parent, change,
-change, parent) to compare their end-to-end figures on one card; each
-run is a process of its own.
+Runs the named phases of the ``chip_smoke.py`` in ``CHECKOUT`` (a ``git
+archive`` unpacked somewhere, or the repository itself) against that
+checkout's own ``src/``, with its kernels built first: ``8a`` serving,
+``8b`` LM serving, ``8c`` MoE and MLA serving, ``9a`` training, ``9c``
+MoE training, ``10lm`` phase 10's census of the LM runs; by default 8a,
+8b and 9a. ``NAME=INT`` sets one of the script's integer constants
+first (``MOE_TRAIN_LAYERS=14`` trains 14 layers in 9c). Run it for a parent and a change in turns within one call
+(parent, change, change, parent) to compare their end-to-end figures on
+one card; each run is a process of its own.
 """
 import os
 import sys
@@ -26,8 +29,17 @@ if not cs.__file__.startswith(tree):
 _build.build_all()
 print("subset tree", tree, flush=True)
 kernels = cs.all_kernels()
-cs.serving_service(kernels)
-torch.cuda.empty_cache()
-cs.serving_lm()
-cs.training_full_width(kernels)
+phases = {"8a": lambda: cs.serving_service(kernels), "8b": cs.serving_lm,
+          "8c": cs.serving_moe, "9a": lambda: cs.training_full_width(kernels),
+          "9c": cs.training_moe, "10lm": lambda: cs.lm_census({})}
+args = sys.argv[2:]
+for arg in [a for a in args if "=" in a]:
+    name, value = arg.split("=")
+    if not isinstance(getattr(cs, name), int):
+        raise SystemExit(f"{name} is not an integer constant of chip_smoke.py")
+    setattr(cs, name, int(value))
+    print(f"subset {name}={value}", flush=True)
+for name in [a for a in args if "=" not in a] or ["8a", "8b", "9a"]:
+    phases[name]()
+    torch.cuda.empty_cache()
 print("subset done", flush=True)

@@ -6,8 +6,8 @@ tests).
 
 The port's own copy of the JAX package's ``configs``: the same data,
 field for field, over the port's ``ModelConfig``. The port builds the
-dense family (``models/model.build_model``); the other families are
-listed so that the registry is whole."""
+dense and MoE families (``models/model.build_model``); the other
+families are listed so that the registry is whole."""
 from __future__ import annotations
 
 import importlib

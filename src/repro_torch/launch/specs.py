@@ -1,9 +1,9 @@
 """Input construction per architecture: concrete tensors for smoke tests
 and training, meta tensors (no allocation) for shape-only callers.
 
-Port of the JAX package's ``launch/specs.py`` for the dense family
-(``decode_inputs`` and the enc-dec and VLM batches wait for ROADMAP
-A10b). The integers are the reference's: numpy draws from ``rng``
+Port of the JAX package's ``launch/specs.py`` for the decoder-only
+families (``decode_inputs`` and the enc-dec and VLM batches wait for
+ROADMAP A10b-4). The integers are the reference's: numpy draws from ``rng``
 (``default_rng(0)`` per draw when None), cast to int32.
 """
 from __future__ import annotations
@@ -31,10 +31,10 @@ def train_batch(cfg: ModelConfig, seq_len: int, batch: int, concrete: bool = Fal
     """``{"tokens", "targets"}``: (batch, seq_len) int32 tensors on
     ``device`` (None means the card), or on the meta device when not
     ``concrete``."""
-    if cfg.family != "dense":
+    if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} batch is not ported; the port builds "
-            "the dense decoder's only (ROADMAP A10b)")
+            "the decoder-only families' (ROADMAP A10b-4)")
     dev = resolve_device(device) if concrete else None
     v = cfg.vocab_size
     return {"tokens": _mk(concrete, (batch, seq_len), rng, dev, v),

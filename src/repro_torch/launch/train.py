@@ -37,6 +37,30 @@ from ..training.stragglers import PreemptionHandler, StragglerMonitor
 from ..training.train_loop import TrainConfig, init_train_state, make_train_step
 
 
+# the launcher's corpus and batch defaults
+ENTITIES, BATCH, SEQ = 3000, 8, 256
+
+
+def make_loader(vocab_size: int, device, entities: int = ENTITIES, batch: int = BATCH,
+                seq: int = SEQ, dedup: bool = True):
+    """The launcher's loader: its synthetic corpus of ``entities``
+    (``dup_rate`` 0.5, seed 13), with ``dedup`` deduplicated by
+    ``dedup_corpus`` (every blocking kernel), packed into ``batch`` x
+    ``seq`` batches over ``vocab_size``. Returns (loader, (records,
+    survivors) or None)."""
+    corpus = synthetic.generate(synthetic.SyntheticSpec(
+        num_entities=entities, dup_rate=0.5, seed=13), device=device)
+    survivors, counts = None, None
+    if dedup:
+        rep = pipeline.dedup_corpus(corpus, hdb.HDBConfig(max_block_size=100),
+                                    device=device)
+        survivors, counts = rep.survivors, (corpus.num_records, rep.num_survivors)
+    ld = loader.TokenStreamLoader(
+        corpus, loader.LoaderConfig(batch_size=batch, seq_len=seq, vocab_size=vocab_size),
+        survivors=survivors, device=device)
+    return ld, counts
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What a run did: its model, train config and state (trained in
@@ -59,8 +83,8 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"],
@@ -69,7 +93,7 @@ def main(argv=None) -> TrainRun:
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_launch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--dedup", action="store_true")
-    ap.add_argument("--entities", type=int, default=3000)
+    ap.add_argument("--entities", type=int, default=ENTITIES)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.mesh != "none":
@@ -87,18 +111,10 @@ def main(argv=None) -> TrainRun:
         grad_accum=args.grad_accum,
         compress_grads=args.compress_grads)
 
-    corpus = synthetic.generate(synthetic.SyntheticSpec(
-        num_entities=args.entities, dup_rate=0.5, seed=13), device=dev)
-    survivors = None
-    if args.dedup:
-        rep = pipeline.dedup_corpus(corpus, hdb.HDBConfig(max_block_size=100),
-                                    device=dev)
-        survivors = rep.survivors
-        print(f"[train] dedup {corpus.num_records} -> {rep.num_survivors}")
-    ld = loader.TokenStreamLoader(
-        corpus, loader.LoaderConfig(batch_size=args.batch, seq_len=args.seq,
-                                    vocab_size=cfg.vocab_size),
-        survivors=survivors, device=dev)
+    ld, counts = make_loader(cfg.vocab_size, dev, args.entities, args.batch, args.seq,
+                             args.dedup)
+    if counts:
+        print(f"[train] dedup {counts[0]} -> {counts[1]}")
 
     state = init_train_state(model, tcfg)
     start = checkpoint.latest_step(args.ckpt_dir) or 0

@@ -4,14 +4,17 @@
 ``model.init`` output, leaves as numpy arrays) into the port's
 ``state_dict``; ``train_state_from_jax`` carries a whole train state
 (parameters, AdamW moments, step counters, error feedback) into the
-port's; ``caches_from_jax`` and ``caches_to_numpy`` move KV caches
+port's; ``caches_from_jax`` and ``caches_to_numpy`` move caches
 between the reference's ``{"prefix", "unit"}`` tree and the port's list
 of per-layer caches, so tests can feed both packages the same state and
 compare what comes out. The reference's layers are a ``prefix`` list and
 a repeating ``unit``: scanned (``scan_layers=True``), each unit leaf has a
 leading ``n_repeat`` axis; unscanned, ``unit[j]`` is a list of
 ``n_repeat`` trees. Layer ``len(prefix) + r * len(unit) + j`` is repeat
-``r`` of unit entry ``j``. Matrices keep the reference's orientation.
+``r`` of unit entry ``j``. A parameter's name in the port is its path
+in the reference's tree joined by dots (layer ``i``'s under
+``stack.layers.<i>``, the MTP layer's under ``mtp``), for every layer
+kind; matrices keep the reference's orientation.
 """
 from __future__ import annotations
 
@@ -22,10 +25,6 @@ import torch
 
 from .config import ModelConfig
 from .transformer import layer_specs, split_prefix_unit
-
-_LAYER_LEAVES = (("pre_norm",), ("post_norm",), ("attn", "wq"), ("attn", "wk"),
-                 ("attn", "wv"), ("attn", "wo"), ("mlp", "w_gate"),
-                 ("mlp", "w_up"), ("mlp", "w_down"))
 
 
 def _layer_trees(cfg: ModelConfig, stack: Dict) -> List:
@@ -49,10 +48,15 @@ def _index(tree, r):
     return np.asarray(tree)[r]
 
 
-def _get(tree, path):
-    for p in path:
-        tree = tree[p]
-    return np.asarray(tree)
+def _leaves(tree, prefix: str):
+    """(dotted name, array) of every leaf of a nested dict, the name
+    ``prefix`` + its keys: a layer's ``attn.wq``, ``moe.shared_gate``,
+    MLA's ``attn.q_norm``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}" if prefix else k)
+    else:
+        yield prefix, np.asarray(tree)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict) -> Dict[str, torch.Tensor]:
@@ -64,13 +68,10 @@ def params_from_jax(cfg: ModelConfig, tree: Dict) -> Dict[str, torch.Tensor]:
             return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
         return torch.from_numpy(np.array(x))
 
-    sd = {"embed.table": t(_get(tree, ("embed", "table"))),
-          "final_norm": t(tree["final_norm"])}
-    if not cfg.tie_embeddings:
-        sd["lm_head.w"] = t(_get(tree, ("lm_head", "w")))
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    sd = {name: t(x) for name, x in _leaves(top, "")}
     for i, layer in enumerate(_layer_trees(cfg, tree["layers"])):
-        for path in _LAYER_LEAVES:
-            sd[f"stack.layers.{i}." + ".".join(path)] = t(_get(layer, path))
+        sd.update((name, t(x)) for name, x in _leaves(layer, f"stack.layers.{i}"))
     return sd
 
 
@@ -101,11 +102,12 @@ def train_state_from_jax(cfg: ModelConfig, tree: Dict, state: Dict) -> Dict:
 
 
 def caches_from_jax(cfg: ModelConfig, caches: Dict, device) -> List[Dict]:
-    """The reference's caches -> the port's list (one cache a layer)."""
+    """The reference's caches -> the port's list (one cache a layer:
+    ``k``/``v`` for attention, ``c_kv``/``k_rope`` for MLA, and ``pos``)."""
     def one(c):
-        return {"k": torch.from_numpy(np.array(c["k"], np.float32)).to(device, cfg.cdtype),
-                "v": torch.from_numpy(np.array(c["v"], np.float32)).to(device, cfg.cdtype),
-                "pos": int(np.asarray(c["pos"]))}
+        return {k: int(np.asarray(v)) if k == "pos" else
+                torch.from_numpy(np.array(v, np.float32)).to(device, cfg.cdtype)
+                for k, v in c.items()}
     return [one(c) for c in _layer_trees(cfg, caches)]
 
 
@@ -115,8 +117,8 @@ def caches_to_numpy(cfg: ModelConfig, caches: List[Dict], scan_layers: bool) -> 
     prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
 
     def one(c):
-        return {"k": c["k"].float().cpu().numpy(), "v": c["v"].float().cpu().numpy(),
-                "pos": np.int32(c["pos"])}
+        return {k: np.int32(v) if k == "pos" else v.float().cpu().numpy()
+                for k, v in c.items()}
 
     out = {"prefix": [one(c) for c in caches[:len(prefix)]], "unit": []}
     for j in range(len(unit)):

@@ -1,7 +1,7 @@
 """Shared layers: RMS norm, RoPE, embeddings, the SwiGLU MLP.
 
-Port of the JAX package's ``models/layers.py`` (the dense decoder's part;
-``layer_norm`` and the GELU MLP belong to enc-dec, ROADMAP A10b). Weights
+Port of the JAX package's ``models/layers.py`` (the decoder-only part;
+``layer_norm`` and the GELU MLP belong to enc-dec, ROADMAP A10b-4). Weights
 keep the reference's orientation (``x @ w``, ``w`` of shape ``(in, out)``)
 and its init scales, so ``convert.params_from_jax`` copies arrays as they
 are. Each weight is cast to the compute dtype where it is used, as the
@@ -28,8 +28,10 @@ def dense_param(shape, dtype, device, generator, scale: Optional[float] = None
     if torch.device(device).type == "meta":
         w = torch.empty(shape, dtype=dtype, device=device)
     else:
-        w = (torch.randn(shape, generator=generator, dtype=torch.float32,
-                         device=device) * scale).to(dtype)
+        # scaled in place: one float32 temporary (a 256-expert tensor's is
+        # 15 GB at deepseek-v3's widths)
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device).mul_(scale).to(dtype)
     return nn.Parameter(w)
 
 

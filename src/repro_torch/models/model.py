@@ -1,7 +1,9 @@
-"""Model facade: the dense decoder from its ModelConfig.
+"""Model facade: the decoder-only families from their ModelConfig.
 
 Port of the JAX package's ``models/model.py`` for the dense family
-(tinyllama-1.1b, internlm2-20b, mistral-nemo-12b, stablelm-3b):
+(tinyllama-1.1b, internlm2-20b, mistral-nemo-12b, stablelm-3b) and the
+MoE family, with MLA and multi-token prediction (olmoe-1b-7b,
+deepseek-v3-671b):
 
     model = build_model(cfg, device="cuda", generator=g)  # seeded weights
     logits, aux = model.apply(batch)                      # forward
@@ -12,13 +14,18 @@ Port of the JAX package's ``models/model.py`` for the dense family
 
 The model carries its weights and device (the reference passes a params
 tree to pure functions; ``convert.params_from_jax`` loads one). Batch
-dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors.
+dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors. ``aux``
+holds the stack's summed MoE aux loss and dropped count (zeros for a
+dense stack) and, with ``cfg.mtp``, the multi-token-prediction logits:
+one more layer over ``cat([h_t, embed(target_t)]) @ mtp_proj`` predicts
+token t+2, and ``loss`` adds 0.3 of its cross-entropy.
 ``build_model`` returns the weights frozen (``requires_grad`` off), so
 ``apply`` and ``loss`` build no graph; ``training.train_loop`` turns
 gradients on and differentiates ``loss``. ``prefill`` and
-``decode_step`` (serving) always run without autograd. Multi-token prediction, MoE, MLA, hybrid, ssm, enc-dec and vlm raise
-``NotImplementedError`` (ROADMAP A10b). The reference's sharding
-annotations (``lshard``) have no counterpart on one card.
+``decode_step`` (serving) always run without autograd. The hybrid, ssm,
+enc-dec and vlm families raise ``NotImplementedError`` (ROADMAP A10b).
+The reference's sharding annotations (``lshard``) have no counterpart on
+one card.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ from ..device import DeviceLike, resolve_device
 from . import layers, transformer
 from .config import ModelConfig
 
+# the families build_model builds
+FAMILIES = ("dense", "moe")
+
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
     logits = logits.to(torch.float32)
@@ -40,7 +50,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
 
 
 class Model(nn.Module):
-    """Embedding, the layer stack, the final norm and the LM head."""
+    """Embedding, the layer stack, the final norm, the LM head, and with
+    ``cfg.mtp`` the MTP layer and its input projection."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator]):
@@ -52,11 +63,17 @@ class Model(nn.Module):
                         else layers.LMHead(cfg, device, generator))
         self.stack = transformer.Stack(cfg, device, generator)
         self.final_norm = layers.zeros_param((cfg.d_model,), cfg.pdtype, device)
+        if cfg.mtp:
+            self.mtp = transformer.DecoderLayer(
+                cfg, ("mla" if cfg.use_mla else "attn", "mlp"), device, generator)
+            self.mtp_proj = layers.dense_param((2 * cfg.d_model, cfg.d_model),
+                                               cfg.pdtype, device, generator)
 
     def _backbone(self, tokens, caches=None, positions=None):
         x = self.embed(tokens)
-        x, new_caches = self.stack(x, positions=positions, caches=caches)
-        return layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), new_caches
+        x, new_caches, aux, dropped = self.stack(x, positions=positions, caches=caches)
+        return (layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), new_caches,
+                aux, dropped)
 
     def _head(self, x):
         if self.lm_head is None:
@@ -65,58 +82,69 @@ class Model(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B,S) tokens -> (B,S,V) logits in the compute dtype."""
-        x, _ = self._backbone(tokens)
-        return self._head(x)
+        return self._head(self._backbone(tokens)[0])
 
     def apply(self, batch: Dict) -> tuple:
-        """(logits, aux) as the reference's ``apply``; a dense model's MoE
-        aux loss and dropped count are zeros. (This name shadows
-        ``nn.Module.apply(fn)``, which the port does not use.)"""
-        logits = self(batch["tokens"])
-        zero = torch.zeros((), device=logits.device)
-        return logits, {"moe_aux": zero,
-                        "moe_dropped": torch.zeros((), dtype=torch.int32,
-                                                   device=logits.device)}
+        """(logits, aux) as the reference's ``apply``: ``moe_aux``,
+        ``moe_dropped`` and, with MTP (which reads ``batch["targets"]``),
+        ``mtp_logits``. (This name shadows ``nn.Module.apply(fn)``, which
+        the port does not use.)"""
+        x, _, aux, dropped = self._backbone(batch["tokens"])
+        out = {"moe_aux": aux, "moe_dropped": dropped}
+        if self.cfg.mtp:
+            fused = (torch.cat([x, self.embed(batch["targets"])], dim=-1)
+                     @ self.mtp_proj.to(self.cfg.cdtype))
+            out["mtp_logits"] = self._head(self.mtp(fused)[0])
+        return self._head(x), out
 
     def loss(self, batch: Dict) -> tuple:
-        """Cross-entropy plus the reference's z-loss (1e-4 mean lse^2) and
-        MoE aux term (zero here): (total, metrics)."""
+        """Cross-entropy plus the reference's z-loss (1e-4 mean lse^2), 1e-2
+        of the MoE aux loss and, with MTP, 0.3 of the t+2 cross-entropy
+        (targets rolled by one, the last position left out): (total,
+        metrics)."""
         logits, aux = self.apply(batch)
         ce, lse = cross_entropy(logits, batch["targets"])
         total = ce + 1e-2 * aux["moe_aux"] + 1e-4 * torch.mean(lse ** 2)
-        return total, {"ce": ce, "moe_aux": aux["moe_aux"],
-                       "moe_dropped": aux["moe_dropped"]}
+        metrics = {"ce": ce, "moe_aux": aux["moe_aux"],
+                   "moe_dropped": aux["moe_dropped"]}
+        if self.cfg.mtp:
+            t2 = torch.roll(batch["targets"], -1, dims=1)
+            mtp_ce, _ = cross_entropy(aux["mtp_logits"][:, :-1], t2[:, :-1])
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        return total, metrics
 
     def init_caches(self, batch: int, max_len: int) -> List:
-        """One zeroed KV cache a layer, in layer order, on the model's device."""
+        """One zeroed cache a layer (KV for attention, latent for MLA), in
+        layer order, on the model's device."""
         return self.stack.init_caches(batch, max_len, self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict, caches: List) -> tuple:
         """The whole prompt through the caches at once; logits of the last
         position. Positions are rotated from 0, as in the reference."""
-        x, caches = self._backbone(batch["tokens"], caches=caches)
+        x, caches, _, _ = self._backbone(batch["tokens"], caches=caches)
         return self._head(x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: List, batch=None) -> tuple:
         """(B,1) tokens through the caches (written in place): (logits,
         caches). Like the reference's, it passes no positions, so RoPE
-        rotates the new token at position 0 (ROADMAP Queue C)."""
-        x, caches = self._backbone(token, caches=caches, positions=None)
+        rotates the new token's keys at position 0 (ROADMAP Queue C)."""
+        x, caches, _, _ = self._backbone(token, caches=caches, positions=None)
         return self._head(x), caches
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> Model:
-    """The dense decoder of ``cfg`` with seeded random weights on
-    ``device`` (None means the card; ``"meta"`` allocates nothing), frozen.
-    ``generator`` must live on that device; None seeds one with 0."""
-    if cfg.family != "dense" or cfg.mtp or cfg.use_mla or cfg.moe_num_experts:
+    """The decoder of ``cfg`` (dense or MoE, with attention or MLA, with or
+    without MTP) with seeded random weights on ``device`` (None means the
+    card; ``"meta"`` allocates nothing), frozen. ``generator`` must live
+    on that device; None seeds one with 0."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (mtp={cfg.mtp}, mla={cfg.use_mla}, "
-            f"experts={cfg.moe_num_experts}) is not ported; the port builds the "
-            "dense decoder only (ROADMAP A10b)")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
+            f"{FAMILIES} (ROADMAP A10b)")
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)

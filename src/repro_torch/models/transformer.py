@@ -1,20 +1,22 @@
 """Decoder-only layer stack.
 
-Port of the JAX package's ``models/transformer.py`` for the dense
-decoder. ``layer_specs`` and ``split_prefix_unit`` are the reference's
-(the decomposition is what ``convert`` needs to read its parameter and
-cache trees); the port supports only the ``("attn", "mlp")`` layer kind,
-and any other kind raises ``NotImplementedError`` (ROADMAP A10b).
+Port of the JAX package's ``models/transformer.py`` for the dense and
+MoE families. ``layer_specs`` and ``split_prefix_unit`` are the
+reference's (the decomposition is what ``convert`` needs to read its
+parameter and cache trees). The port builds the layer kinds
+``(mixer, ffn)`` with mixer ``"attn"`` (``attention.Attention``) or
+``"mla"`` (``mla.MLA``) and ffn ``"mlp"`` (``layers.MLP``) or ``"moe"``
+(``moe.MoE``); ``"mamba"`` and ``"rwkv"`` raise ``NotImplementedError``
+(ROADMAP A10b-3).
 
 Eager PyTorch has no scan, so the port keeps one ``nn.ModuleList`` of
 layers in layer order (prefix, then the unit repeated ``n_repeat``
 times); ``cfg.scan_layers`` changes nothing here. ``cfg.remat`` is the
-reference's rematerialisation of each unit, per layer (every unit of
-the ported layer kind is one layer) while autograd records a forward
-without caches: ``"full"`` keeps only the layer's input
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
-``"selective"`` also keeps the outputs of the weight products
-(``aten.mm``: dots with no batch dims, the reference's
+reference's rematerialisation of each unit, done per layer while
+autograd records a forward without caches: ``"full"`` keeps only the
+layer's input (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``); ``"selective"`` also keeps the outputs of the
+weight products (``aten.mm``: dots with no batch dims, the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest. Remat
 changes memory, not values.
 """
@@ -27,11 +29,11 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from . import attention, layers
+from . import attention, layers, mla, moe
 from .config import ModelConfig
 
 LayerSpec = Tuple[str, str]  # (mixer_kind, ffn_kind)
-SUPPORTED: LayerSpec = ("attn", "mlp")
+SUPPORTED = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"))
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -83,23 +85,36 @@ def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
     raise ValueError(f"remat {remat!r}: none, full or selective")
 
 
-class DecoderLayer(nn.Module):
-    """Pre-norm attention then pre-norm SwiGLU MLP, each residual."""
+_MIXERS = {"attn": attention.Attention, "mla": mla.MLA}
+_FFNS = {"mlp": layers.MLP, "moe": moe.MoE}
 
-    def __init__(self, cfg: ModelConfig, device, generator):
+
+class DecoderLayer(nn.Module):
+    """Pre-norm mixer (``attn``: attention or MLA) then a pre-norm FFN
+    (``mlp`` or ``moe``), each residual. Returns (x, cache, aux,
+    dropped): the MoE's aux loss (float32) and dropped count (int32), or
+    None after a dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device, generator):
         super().__init__()
         self.cfg = cfg
+        self.spec = spec
+        mixer, ffn = spec
         self.pre_norm = layers.zeros_param((cfg.d_model,), cfg.pdtype, device)
-        self.attn = attention.Attention(cfg, device, generator)
+        self.attn = _MIXERS[mixer](cfg, device, generator)
         self.post_norm = layers.zeros_param((cfg.d_model,), cfg.pdtype, device)
-        self.mlp = layers.MLP(cfg, device, generator)
+        setattr(self, ffn, _FFNS[ffn](cfg, device, generator))
 
     def forward(self, x, positions=None, cache=None):
         eps = self.cfg.norm_eps
         y, cache = self.attn(layers.rms_norm(x, self.pre_norm, eps),
                              positions=positions, cache=cache)
         x = x + y
-        return x + self.mlp(layers.rms_norm(x, self.post_norm, eps)), cache
+        h = layers.rms_norm(x, self.post_norm, eps)
+        if self.spec[1] == "moe":
+            y, aux, dropped = self.moe(h)
+            return x + y, cache, aux, dropped
+        return x + self.mlp(h), cache, None, None
 
 
 class Stack(nn.Module):
@@ -108,33 +123,57 @@ class Stack(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator):
         super().__init__()
         specs = layer_specs(cfg)
-        unsupported = sorted(set(specs) - {SUPPORTED})
+        unsupported = sorted(set(specs) - set(SUPPORTED))
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: layer kinds {unsupported} are not ported; the "
-                "port builds ('attn', 'mlp') layers only (ROADMAP A10b)")
+                f"port builds {sorted(SUPPORTED)} layers (ROADMAP A10b)")
         self.cfg = cfg
+        self.specs = specs
         self.prefix, self.unit, self.n_repeat = split_prefix_unit(specs)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device, generator)
-                                    for _ in specs)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, spec, device, generator)
+                                    for spec in specs)
 
     def forward(self, x: torch.Tensor, positions=None,
                 caches: Optional[List] = None):
-        """``caches``: one cache a layer, in layer order, or None."""
+        """``caches``: one cache a layer, in layer order, or None. Returns
+        (x, caches, aux, dropped), the MoE aux losses and dropped counts
+        summed in the reference's order: each prefix layer's into the
+        total, each repeat's unit summed and then added. A dense layer's
+        zeros are left out of the sums (adding 0.0 changes no value)."""
         recording = torch.is_grad_enabled() and any(p.requires_grad
                                                     for p in self.parameters())
-        if caches is None and self.cfg.remat != "none" and recording:
-            for layer in self.layers:
-                x, _ = _remat(layer, self.cfg.remat, x, positions)
-            return x, None
+        remat = caches is None and self.cfg.remat != "none" and recording
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        dropped_total = torch.zeros((), dtype=torch.int32, device=x.device)
         new_caches = [] if caches is not None else None
+        n_prefix, n_unit = len(self.prefix), len(self.unit)
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, positions=positions,
-                         cache=caches[i] if caches is not None else None)
+            if remat:
+                x, c, aux, dropped = _remat(layer, self.cfg.remat, x, positions)
+            else:
+                x, c, aux, dropped = layer(
+                    x, positions=positions,
+                    cache=caches[i] if caches is not None else None)
             if caches is not None:
                 new_caches.append(c)
-        return x, new_caches
+            if i < n_prefix:
+                if aux is not None:
+                    aux_total = aux_total + aux
+                    dropped_total = dropped_total + dropped
+                continue
+            j = (i - n_prefix) % n_unit
+            if j == 0:
+                aux_u = dropped_u = None
+            if aux is not None:
+                aux_u = aux if aux_u is None else aux_u + aux
+                dropped_u = dropped if dropped_u is None else dropped_u + dropped
+            if j == n_unit - 1 and aux_u is not None:
+                aux_total = aux_total + aux_u
+                dropped_total = dropped_total + dropped_u
+        return x, new_caches, aux_total, dropped_total
 
     def init_caches(self, batch: int, max_len: int, device) -> List:
-        return [attention.init_cache(self.cfg, batch, max_len, device)
-                for _ in self.layers]
+        init = {"attn": attention.init_cache, "mla": mla.init_mla_cache}
+        return [init[mixer](self.cfg, batch, max_len, device)
+                for mixer, _ in self.specs]

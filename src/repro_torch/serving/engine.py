@@ -1,5 +1,5 @@
 """Batched serving engine: continuous-batching decode over the port's
-dense decoder.
+decoder-only models (dense and MoE, attention or MLA caches).
 
 Port of the JAX package's ``serving/engine.py``. A slot-based scheduler:
 a fixed batch of decode slots; finished sequences free their slot, queued

@@ -1,7 +1,8 @@
 """Training runs shared by the card tests and ``chip_smoke.py`` phase 9b.
 
 ``train_steps`` runs the train step over given batches;
-``scale_qk`` scales the attention's initial ``wq`` and ``wk`` (the
+``scale_qk`` scales the attention's initial ``wq`` and ``wk`` (MLA's
+``w_uq`` and ``w_ukv``, the MTP layer's included; the
 reference's init makes the softmax sharp enough that float32 rounding,
 amplified by AdamW's first update, parts two devices' runs after one
 step; ``tests/test_torch_training.py`` measures it); ``resume_differs``
@@ -46,11 +47,17 @@ def batches(cfg: ModelConfig, n: int, batch: int, seq: int, device) -> List[Dict
             for i in range(n)]
 
 
+# the weights whose fan-in quirk sharpens the attention scores: the
+# attention's query and key projections, MLA's query and key/value
+# up-projections
+QK_WEIGHTS = ("wq", "wk", "w_uq", "w_ukv")
+
+
 @torch.no_grad()
 def scale_qk(model: Model, factor: float) -> Model:
-    for layer in model.stack.layers:
-        layer.attn.wq.mul_(factor)
-        layer.attn.wk.mul_(factor)
+    for name, w in model.named_parameters():
+        if name.endswith(tuple("attn." + n for n in QK_WEIGHTS)):
+            w.mul_(factor)
     return model
 
 

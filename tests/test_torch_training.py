@@ -407,14 +407,32 @@ def test_launcher_dedups_trains_and_resumes(corpora, tmp_path):
     """The launcher on the CPU: the reference's dedup counts printed, six
     steps with a checkpoint every three; a run killed after step 3's
     checkpoint resumes to the bit of the uninterrupted run."""
+    _launch_and_resume(ARCH, corpora, tmp_path)
+
+
+def test_launcher_trains_and_resumes_the_moe_family(corpora, tmp_path):
+    """The same on the reduced olmoe-1b-7b over a corpus of 500 entities:
+    its expert tensors, router and AdamW moments saved and restored, the
+    resumed run equal to the bit."""
+    full = _launch_and_resume("olmoe-1b-7b", corpora, tmp_path, entities=500)
+    assert any(k.endswith("moe.w_gate") for k in full.state["params"])
+
+
+def _launch_and_resume(arch, corpora, tmp_path, entities=None):
+    """``entities`` other than the launcher's default skips the check of the
+    printed dedup counts against the reference's (the fixture's corpus)."""
     jc, _, jrep, _ = corpora
-    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--dedup",
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--dedup",
             "--steps", "6", "--ckpt-every", "3"]
+    if entities:
+        argv += ["--entities", str(entities)]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         full = train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
     printed = out.getvalue()
-    assert f"[train] dedup {jc.num_records} -> {jrep.num_survivors}\n" in printed
+    if entities is None:
+        assert f"[train] dedup {jc.num_records} -> {jrep.num_survivors}\n" in printed
+    assert "[train] dedup " in printed
     assert "[train] step 0 loss" in printed and "final loss" in printed
     assert full.start == 0 and len(full.losses) == 6 and np.isfinite(full.losses).all()
     assert [s for s, _, _ in full.saves] == [3, 6]
@@ -433,6 +451,7 @@ def test_launcher_dedups_trains_and_resumes(corpora, tmp_path):
                for k in full.state["params"])
     for a, b in zip(resumed.loader.batch(3), full.loader.batch(3)):
         assert torch.equal(a, b)
+    return full
 
 
 def test_launcher_refuses_the_mesh_and_defaults_to_the_card(monkeypatch):
