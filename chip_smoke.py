@@ -126,6 +126,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       config: first-step logits within 1e-3 and equal tokens, or tokens
       that part only after a routing near tie (margin under 1e-5),
       printed;
+   d. the recurrent mixers: RWKV6-SERVE (rwkv6-1.6b as published, the
+      WKV's step form) and JAMBA-SERVE (jamba-1.5-large-398b at its
+      published widths cut to 4 of 72 layers: three Mamba layers, two of
+      them with MoE FFNs, and the attention layer), each as 8c's cells
+      (parameter count on the meta device, 8b's traffic, the dropped
+      tokens, ten profiled decode steps, one full-width Model.loss); then
+      cuda == cpu in float32 (TF32 off) at rwkv6's widths on 2 layers
+      (equal tokens) and at jamba's reduced config (8c's rule);
 9. training (``repro_torch.launch.train``, ``repro_torch.training``):
    a. the launcher on tinyllama-1.1b as published (bfloat16, seeded
       weights on the card, remat "full"), --dedup at its defaults (3,000
@@ -152,13 +160,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       memory; two more steps profiled; then both families' reduced
       configs in float32 (TF32 off) on cuda and cpu: 3 train steps give
       loss, ce, moe_aux and grad_norm within rtol 1e-4;
+   d. RWKV6-TRAIN: rwkv6-1.6b's widths at 4 of 24 layers through the
+      train step as 9c (6 steps, steps 2-6 timed, one more profiled);
+      then the reduced rwkv6 and jamba configs cuda == cpu as 9c holds
+      its families;
 10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
     run of each path under torch's sync debug mode, none of them timed:
     SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
     SERVE50K probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
     launch/train.py --dedup for two TINYLLAMA-TRAIN steps, an OLMOE-SERVE
-    and a DEEPSEEK-SERVE decode step and two OLMOE-TRAIN steps. Each prints
-    its total syncs, the syncs per profiler range and its ten heaviest
+    and a DEEPSEEK-SERVE decode step, two OLMOE-TRAIN steps, an
+    RWKV6-SERVE and a JAMBA-SERVE decode step and two RWKV6-TRAIN steps
+    (4 layers).
+    Each prints its total syncs, the syncs per profiler range and its ten heaviest
     sites with their inventory reasons (``census`` lines); a run that
     counts no sync, or a site of the port whose line carries no
     ``# repro: noqa[R001]``/``noqa[R003]``, fails the phase.
@@ -232,11 +246,11 @@ STREAM_DELTA = 1_000
 # the SYN stream: the SYN1M spec arriving in a seeded order, a base then
 # SYN_STREAM_DELTAS deltas of 1% each through DedupPipeline.extend. Cut
 # from SYN1M's 400,000 entities: at 200,000 one 1% delta took 54 s of host
-# time on an H100 (PERF.md section 4); and from ten deltas to four: each
-# costs about 20 s, twice with its checked replay, which kept the script
-# too near its time limit
+# time on an H100 (PERF.md section 4); and from ten deltas to two: each
+# costs about 20 s, twice with its checked replay, and four kept the
+# script too near its time limit once phases 8d and 9d came
 SYN_STREAM_ENTITIES = 100_000
-SYN_STREAM_DELTAS = 4
+SYN_STREAM_DELTAS = 2
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
 TRI_EXTREME_SLOTS = 1 << 20
 
@@ -1863,9 +1877,13 @@ def serving_service(kernels):
 
 def lm_param_count(cfg):
     """``cfg.total_params()`` plus the weights it leaves out: two norms a
-    layer and the final one, MLA's q_norm and kv_norm a layer, and the MTP
+    layer and the final one, MLA's q_norm and kv_norm a layer, the MTP
     head (one more layer with the dense FFN, its norms, and the (2d, d)
-    ``mtp_proj``)."""
+    ``mtp_proj``), and what it miscounts of the recurrent mixers: it takes
+    an RWKV block for ``6d^2 + 2d`` (it holds five (d, d) matrices, the
+    decay LoRA and eight vectors of d) and leaves out a Mamba layer's
+    ``conv``, ``w_dt``, ``w_dt_out``, ``a_log``, ``dt_bias`` and
+    ``d_skip``."""
     d = cfg.d_model
     per_layer = 2 * d + (cfg.q_lora_rank + cfg.kv_lora_rank if cfg.use_mla else 0)
     n = cfg.total_params() + cfg.num_layers * per_layer + d
@@ -1873,6 +1891,14 @@ def lm_param_count(cfg):
         head = dataclasses.replace(cfg, num_layers=1, moe_num_experts=0, vocab_size=0,
                                    mtp=False)
         n += head.total_params() + per_layer + 2 * d * d
+    if cfg.family == "ssm":
+        lora = max(32, d // 32)
+        n += cfg.num_layers * (5 * d * d + 2 * d * lora + 8 * d - (6 * d * d + 2 * d))
+    if cfg.family == "hybrid":
+        din, rank = cfg.mamba_expand * d, -(-d // 16)
+        n_mamba = sum(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        n += n_mamba * (cfg.mamba_d_conv * din + 2 * din * rank
+                        + din * cfg.mamba_d_state + 2 * din)
     return n
 
 
@@ -2028,21 +2054,28 @@ class MoEHooks:
             h.remove()
 
 
-def moe_serve_cell(tag, cfg):
-    """One MoE serving cell on the card: phase 8b's engine run with the
-    dropped count summed over it, ten profiled decode steps, and one
-    ``Model.loss`` forward on a (LOSS_BATCH, LOSS_SEQ) batch."""
+def moe_widths(cfg):
+    """A MoE serving cell's widths, as its line prints them."""
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+            f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
+            f"{f' + {cfg.moe_shared_experts} shared' if cfg.moe_shared_experts else ''}, "
+            f"expert d_ff {cfg.moe_d_ff}, dense d_ff {cfg.d_ff}, mla {cfg.use_mla}, mtp "
+            f"{cfg.mtp}")
+
+
+def lm_serve_cell(tag, cfg, widths):
+    """One LM serving cell on the card: phase 8b's engine run with the
+    MoE layers' dropped count summed over it (0 without MoE layers), ten
+    profiled decode steps, and one ``Model.loss`` forward on a
+    (LOSS_BATCH, LOSS_SEQ) batch. ``widths`` describes ``cfg`` in the
+    printed line."""
     from repro_torch.launch import specs
     model, n_params = built_lm(tag, cfg)
     hooks = MoEHooks(model)
     eng, tokens, steps, ms, wall = serve_timed(tag, model)
     hooks.remove()
-    print(f"{tag}: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
-          f"{f' + {cfg.moe_shared_experts} shared' if cfg.moe_shared_experts else ''}, "
-          f"expert d_ff {cfg.moe_d_ff}, dense d_ff {cfg.d_ff}, mla {cfg.use_mla}, mtp "
-          f"{cfg.mtp}, vocab {cfg.vocab_size}, {cfg.param_dtype}; {n_params} parameters, "
-          f"equal to total_params plus the norms and the MTP head) served {LM_REQUESTS} "
+    print(f"{tag}: {cfg.name} ({widths}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+          f"{n_params} parameters, equal to lm_param_count) served {LM_REQUESTS} "
           f"requests over {LM_SLOTS} slots: served_tokens={len(tokens)} "
           f"decode_steps={steps} step_ms={ms / steps} wall_s={wall} "
           f"tokens_per_s={len(tokens) / wall} moe_dropped={int(hooks.dropped)} "
@@ -2093,12 +2126,13 @@ def routed_engine_run(model, reqs):
     return out
 
 
-def moe_check(tag, cfg):
+def engine_check(tag, cfg):
     """cuda == cpu for ``cfg`` (float32, TF32 off): the first-step logits
     within LM_LOGIT_ATOL and equal tokens, or tokens that part only after
     a routing near tie (the first routing difference at or before the
     first decode step whose greedy tokens differ, its margin under
-    ROUTE_TIE_MARGIN), printed."""
+    ROUTE_TIE_MARGIN), printed. Without MoE layers the tokens must be
+    equal."""
     from repro_torch.models.model import build_model
     from repro_torch.serving import smoke as serve_smoke
     reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS, MOE_CHECK_NEW)
@@ -2149,13 +2183,67 @@ def serving_moe():
     cpu at small size."""
     from repro_torch.configs import get_config, reduced_config
     t_phase = time.perf_counter()
-    moe_serve_cell("OLMOE-SERVE", get_config(MOE_ARCH))
-    moe_serve_cell("DEEPSEEK-SERVE", dataclasses.replace(get_config(MLA_ARCH),
-                                                         num_layers=MLA_SERVE_LAYERS))
-    moe_check("olmoe", dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CHECK_LAYERS,
-                                           param_dtype="float32", compute_dtype="float32"))
-    moe_check("deepseek", reduced_config(MLA_ARCH))
+    lm_serve_cell("OLMOE-SERVE", get_config(MOE_ARCH), moe_widths(get_config(MOE_ARCH)))
+    deepseek = dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_SERVE_LAYERS)
+    lm_serve_cell("DEEPSEEK-SERVE", deepseek, moe_widths(deepseek))
+    engine_check("olmoe", dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CHECK_LAYERS,
+                                              param_dtype="float32", compute_dtype="float32"))
+    engine_check("deepseek", reduced_config(MLA_ARCH))
     print(f"phase 8c: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: the recurrent mixers (rwkv6-1.6b, jamba-1.5-large-398b)
+# ---------------------------------------------------------------------------
+
+# rwkv6-1.6b as published; jamba-1.5-large-398b at its published widths
+# cut to JAMBA_SERVE_LAYERS of 72 layers, (mamba, moe), (mamba, mlp),
+# (mamba, moe), (attn, mlp): the fewest leading layers that hold every
+# layer kind (one period of 8 is about 90 GB in bfloat16, over the card's
+# 80 GB). Both take phase 8b's traffic. The cuda == cpu check: rwkv6's
+# widths at RWKV_CHECK_LAYERS layers and jamba's reduced config (2 full-
+# width layers in float32 would be 42 GB on the host), as engine_check holds
+# them
+RWKV_ARCH = "rwkv6-1.6b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_SERVE_LAYERS = 4
+RWKV_CHECK_LAYERS = 2
+
+
+def rwkv_widths(cfg):
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.d_model // cfg.rwkv_head_dim} RWKV heads of {cfg.rwkv_head_dim} "
+            f"({cfg.rwkv_impl} form), d_ff {cfg.d_ff}")
+
+
+def jamba_widths(cfg):
+    return (f"{cfg.num_layers} of 72 layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim} every "
+            f"{cfg.attn_period}th layer, Mamba d_state {cfg.mamba_d_state} d_conv "
+            f"{cfg.mamba_d_conv} expand {cfg.mamba_expand}, {cfg.moe_num_experts} experts "
+            f"top-{cfg.moe_top_k} every {cfg.moe_layer_period}nd layer, expert d_ff "
+            f"{cfg.moe_d_ff}, dense d_ff {cfg.d_ff}")
+
+
+def jamba_serve_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(JAMBA_ARCH), num_layers=JAMBA_SERVE_LAYERS)
+
+
+def serving_recurrent():
+    """Phase 8d: RWKV6-SERVE and JAMBA-SERVE on the card, then cuda == cpu
+    at rwkv6's widths on RWKV_CHECK_LAYERS layers and at jamba's reduced
+    config."""
+    from repro_torch.configs import get_config, reduced_config
+    t_phase = time.perf_counter()
+    rwkv = get_config(RWKV_ARCH)
+    lm_serve_cell("RWKV6-SERVE", rwkv, rwkv_widths(rwkv))
+    jamba = jamba_serve_config()
+    lm_serve_cell("JAMBA-SERVE", jamba, jamba_widths(jamba))
+    engine_check("rwkv6", dataclasses.replace(rwkv, num_layers=RWKV_CHECK_LAYERS,
+                                              param_dtype="float32", compute_dtype="float32"))
+    engine_check("jamba", reduced_config(JAMBA_ARCH))
+    print(f"phase 8d: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
 # ---------------------------------------------------------------------------
@@ -2337,32 +2425,34 @@ MOE_TRAIN_LAYERS = 15
 MOE_TRAIN_STEPS = 6
 
 
-def moe_train_setup():
-    """(model, state, step function, loader) of OLMOE-TRAIN on the card,
-    with the launcher's optimizer settings."""
-    from repro_torch.configs import get_config
+def train_setup(cfg, steps):
+    """(model, state, step function, loader) of a train cell of ``cfg`` on
+    the card, with the launcher's optimizer settings over ``steps`` steps
+    and its deduplicated loader."""
     from repro_torch.launch import train
     from repro_torch.training.optimizer import OptimizerConfig
     from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
     ld = train.make_loader(cfg.vocab_size, "cuda")[0]
-    model, _ = built_lm("moe train", cfg)
-    tcfg = TrainConfig(opt=OptimizerConfig(lr=3e-4, warmup_steps=min(20, MOE_TRAIN_STEPS // 4),
-                                           total_steps=MOE_TRAIN_STEPS))
+    model, _ = built_lm(f"{cfg.name} train", cfg)
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=3e-4, warmup_steps=min(20, steps // 4),
+                                           total_steps=steps))
     return model, init_train_state(model, tcfg), make_train_step(model, tcfg), ld
 
 
-def training_moe():
-    """Phase 9c: OLMOE-TRAIN on the card, then cuda == cpu at the reduced
-    configs of both families."""
-    from repro_torch.configs import get_config, reduced_config
-    from repro_torch.models.model import build_model
-    from repro_torch.training import smoke
-    t_phase = time.perf_counter()
-    model, state, step_fn, ld = moe_train_setup()
-    cfg = model.cfg
+def moe_train_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+
+
+def train_cell(tag, cfg, steps, profiled_steps, full_layers):
+    """``steps`` train steps of ``cfg`` on the card (bfloat16, remat
+    "full", the launcher's batch from its deduplicated loader), steps 2 on
+    timed with CUDA events, every loss finite; then ``profiled_steps``
+    more profiled: the idle share, launches a step and the optimizer's
+    share of the device time."""
+    model, state, step_fn, ld = train_setup(cfg, steps)
     marks, mets = [], []
-    for i in range(MOE_TRAIN_STEPS):
+    for i in range(steps):
         x, y = ld.batch(i)
         begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         begin.record()
@@ -2375,41 +2465,50 @@ def training_moe():
     step_ms = [a.elapsed_time(b) for a, b in marks]
     mets = [{k: float(v) for k, v in m.items()} for m in mets]
     losses = [m["loss"] for m in mets]
-    if not (np.isfinite(losses).all() and int(state["step"]) == MOE_TRAIN_STEPS):
-        raise AssertionError(f"moe train: losses {losses}, step {int(state['step'])}")
+    if not (np.isfinite(losses).all() and int(state["step"]) == steps):
+        raise AssertionError(f"{tag}: losses {losses}, step {int(state['step'])}")
     timed = step_ms[1:]
     tokens = ld.tokens_per_batch
-    print(f"moe train: {cfg.name} at {cfg.num_layers} of {get_config(MOE_ARCH).num_layers} layers (d_model {cfg.d_model}, "
-          f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}, {cfg.param_dtype}, remat "
-          f"{cfg.remat}) batch {ld.cfg.batch_size} seq {ld.cfg.seq_len} from the deduplicated "
-          f"loader: {MOE_TRAIN_STEPS} steps, losses {losses}; moe_aux "
-          f"{[m['moe_aux'] for m in mets]}; moe_dropped {[int(m['moe_dropped']) for m in mets]}"
-          f"; steps 2-{MOE_TRAIN_STEPS} step_ms={np.mean(timed)} (min {min(timed)} max "
-          f"{max(timed)}) tokens_per_s={tokens * len(timed) / (sum(timed) / 1e3)}; first "
-          f"step_ms={step_ms[0]}; max_memory_allocated={peak} of the card's "
+    print(f"{tag}: {cfg.name} at {cfg.num_layers} of {full_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}, "
+          f"{cfg.param_dtype}, remat {cfg.remat}) batch {ld.cfg.batch_size} seq "
+          f"{ld.cfg.seq_len} from the deduplicated loader: {steps} steps, losses {losses}; "
+          f"moe_aux {[m['moe_aux'] for m in mets]}; moe_dropped "
+          f"{[int(m['moe_dropped']) for m in mets]}; steps 2-{steps} step_ms="
+          f"{np.mean(timed)} (min {min(timed)} max {max(timed)}) tokens_per_s="
+          f"{tokens * len(timed) / (sum(timed) / 1e3)}; first step_ms={step_ms[0]}; "
+          f"max_memory_allocated={peak} of the card's "
           f"{torch.cuda.get_device_properties(0).total_memory}", flush=True)
 
-    def steps():
+    def more():
         nonlocal state
-        for i in range(TRAIN_PROFILED_STEPS):
-            x, y = ld.batch(MOE_TRAIN_STEPS + i)
+        for i in range(profiled_steps):
+            x, y = ld.batch(steps + i)
             state, _ = step_fn(state, {"tokens": x, "targets": y})
 
-    _, wall, busy, n_launch, ranges = profile_breakdown(
-        steps, tag=f"moe train x{TRAIN_PROFILED_STEPS}")
+    _, wall, busy, n_launch, ranges = profile_breakdown(more, tag=f"{tag} x{profiled_steps}")
     opt_s = ranges["train.optimizer"]
-    print(f"moe train: a profiled step: wall_ms={wall / TRAIN_PROFILED_STEPS * 1e3} "
-          f"device_busy_ms={busy / TRAIN_PROFILED_STEPS * 1e3} device_idle_share="
-          f"{1 - busy / wall:.4f} launches={n_launch / TRAIN_PROFILED_STEPS}; the "
-          f"optimizer's kernels device_ms={opt_s / TRAIN_PROFILED_STEPS * 1e3} "
+    print(f"{tag}: a profiled step: wall_ms={wall / profiled_steps * 1e3} "
+          f"device_busy_ms={busy / profiled_steps * 1e3} device_idle_share="
+          f"{1 - busy / wall:.4f} launches={n_launch / profiled_steps}; the "
+          f"optimizer's kernels device_ms={opt_s / profiled_steps * 1e3} "
           f"({opt_s / busy:.4f} of the device time)", flush=True)
     del model, state, step_fn
     torch.cuda.empty_cache()
 
+
+def reduced_train_check(tag, archs):
+    """Each arch's reduced config in float32 (TF32 off) on cuda and cpu
+    from the same weights, the query and key projections scaled by
+    TRAIN_CHECK_QK_SCALE: TRAIN_CHECK_STEPS train steps give loss, ce,
+    moe_aux and grad_norm within TRAIN_RTOL."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import smoke
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        for arch in (MOE_ARCH, MLA_ARCH):
+        for arch in archs:
             small = reduced_config(arch)
             init = build_model(small, device="cpu").state_dict()
             out = {}
@@ -2421,21 +2520,63 @@ def training_moe():
                                    TRAIN_CHECK_SEQ, dev)
                 out[dev] = smoke.train_steps(m, bs)[1]
             keys = ("loss", "ce", "moe_aux", "grad_norm")
-            errs = [max(abs(g[k] - w[k]) / abs(w[k]) for k in keys)
+            errs = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in keys)
                     for g, w in zip(out["cuda"], out["cpu"])]
-            print(f"moe train check: {arch} reduced, qk scale {TRAIN_CHECK_QK_SCALE}, "
+            print(f"{tag}: {arch} reduced, qk scale {TRAIN_CHECK_QK_SCALE}, "
                   f"{TRAIN_CHECK_STEPS} steps: cuda losses {[m['loss'] for m in out['cuda']]} "
                   f"cpu {[m['loss'] for m in out['cpu']]}; moe_dropped cuda "
                   f"{[m['moe_dropped'] for m in out['cuda']]} cpu "
                   f"{[m['moe_dropped'] for m in out['cpu']]}; max relative error of "
                   f"{', '.join(keys)} a step {errs}", flush=True)
             if max(errs) > TRAIN_RTOL:
-                raise AssertionError(f"moe train check: {arch} cuda vs cpu {errs} over "
+                raise AssertionError(f"{tag}: {arch} cuda vs cpu {errs} over "
                                      f"rtol {TRAIN_RTOL}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
+
+
+def training_moe():
+    """Phase 9c: OLMOE-TRAIN on the card, then cuda == cpu at the reduced
+    configs of both families."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    train_cell("moe train", moe_train_config(), MOE_TRAIN_STEPS, TRAIN_PROFILED_STEPS,
+               get_config(MOE_ARCH).num_layers)
+    reduced_train_check("moe train check", (MOE_ARCH, MLA_ARCH))
     print(f"phase 9c: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
+# the recurrent train cell RWKV6-TRAIN: rwkv6-1.6b's widths through the
+# train step in bfloat16 with remat "full" and the launcher's batch (8 x
+# 256) from the deduplicated loader, RWKV_TRAIN_STEPS steps, steps 2 on
+# timed, RWKV_TRAIN_PROFILED_STEPS more profiled; then cuda == cpu on
+# both recurrent families' reduced configs, as phase 9c holds the MoE
+# ones. The WKV's step form is a Python loop over the 256 positions of
+# every layer, in the forward, the recompute and the backward: at all 24
+# layers a step took 8.7 s and 276k launches on an H100 80GB HBM3, and
+# reading its profile back about 400 s (PERF.md section 4). So the cell is
+# cut to RWKV_TRAIN_LAYERS of 24 layers and one profiled step
+# (RWKV_TRAIN_LAYERS=24 through scripts/chip_phases.py runs it whole)
+RWKV_TRAIN_LAYERS = 4
+RWKV_TRAIN_STEPS = 6
+RWKV_TRAIN_PROFILED_STEPS = 1
+
+
+def rwkv_train_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_TRAIN_LAYERS)
+
+
+def training_recurrent():
+    """Phase 9d: RWKV6-TRAIN on the card, then cuda == cpu at the reduced
+    rwkv6 and jamba configs."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    train_cell("rwkv train", rwkv_train_config(), RWKV_TRAIN_STEPS,
+               RWKV_TRAIN_PROFILED_STEPS, get_config(RWKV_ARCH).num_layers)
+    reduced_train_check("rwkv train check", (RWKV_ARCH, JAMBA_ARCH))
+    print(f"phase 9d: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
 # ---------------------------------------------------------------------------
@@ -2475,8 +2616,9 @@ def host_sync_census(syn1m):
     through dedup_corpus(blocker="hdb"), a STREAM100K delta, a SERVE50K
     probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
     launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an OLMOE-SERVE
-    and a DEEPSEEK-SERVE decode step, and CENSUS_TRAIN_STEPS OLMOE-TRAIN
-    steps."""
+    and a DEEPSEEK-SERVE decode step, CENSUS_TRAIN_STEPS OLMOE-TRAIN
+    steps, an RWKV6-SERVE and a JAMBA-SERVE decode step, and
+    CENSUS_TRAIN_STEPS RWKV6-TRAIN steps."""
     from repro_torch.core import hdb
     from repro_torch.data import pipeline
     from repro_torch.streaming import BlockStore, DeltaBlocker
@@ -2510,31 +2652,48 @@ def host_sync_census(syn1m):
     print(f"phase 10: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
-def lm_census(totals):
-    """Phase 10's LM runs, each total into ``totals``: a TINYLLAMA-SERVE
-    decode step, launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an
-    OLMOE-SERVE and a DEEPSEEK-SERVE decode step, and CENSUS_TRAIN_STEPS
-    OLMOE-TRAIN steps."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train
+def decode_census(totals, tag, cfg):
+    """One decode step of ``cfg``'s engine (every slot admitted by the step
+    before) under the census, its total into ``totals``."""
     from repro_torch.models.model import build_model
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving import smoke as serve_smoke
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for uid, prompt, max_new in serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS,
+                                                         LM_MAX_NEW):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
+    eng.step()  # admits (prefills) every slot
+    totals[tag] = census(f"{tag} decode step", eng.step).total
+    del model, eng
+    torch.cuda.empty_cache()
 
-    def decode_census(tag, cfg):
-        model = build_model(cfg, device="cuda",
-                            generator=torch.Generator(device="cuda").manual_seed(0))
-        eng = ServingEngine(model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-        for uid, prompt, max_new in serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS,
-                                                             LM_MAX_NEW):
-            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
-        eng.step()  # admits (prefills) every slot
-        totals[tag] = census(f"{tag} decode step", eng.step).total
-        del model, eng
-        torch.cuda.empty_cache()
 
-    decode_census("TINYLLAMA-SERVE", get_config(LM_ARCH))
+def train_census(totals, tag, cfg):
+    """CENSUS_TRAIN_STEPS train steps of ``cfg``'s train cell under the
+    census, the total into ``totals``."""
+    model, state, step_fn, ld = train_setup(cfg, CENSUS_TRAIN_STEPS)
 
+    def steps():
+        nonlocal state
+        for i in range(CENSUS_TRAIN_STEPS):
+            x, y = ld.batch(i)
+            state, _ = step_fn(state, {"tokens": x, "targets": y})
+
+    totals[tag] = census(f"{tag} {CENSUS_TRAIN_STEPS} train steps", steps).total
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+
+def lm_census(totals):
+    """Phase 10's LM runs, each total into ``totals``: a TINYLLAMA-SERVE
+    decode step, launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an
+    OLMOE-SERVE and a DEEPSEEK-SERVE decode step, CENSUS_TRAIN_STEPS
+    OLMOE-TRAIN steps, then ``recurrent_census``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    decode_census(totals, "TINYLLAMA-SERVE", get_config(LM_ARCH))
     root = tempfile.mkdtemp(prefix="chip_smoke_census_")
     try:
         argv = ["--arch", TRAIN_ARCH, "--steps", str(CENSUS_TRAIN_STEPS), "--dedup",
@@ -2545,22 +2704,20 @@ def lm_census(totals):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    decode_census(totals, "OLMOE-SERVE", get_config(MOE_ARCH))
+    decode_census(totals, "DEEPSEEK-SERVE", dataclasses.replace(get_config(MLA_ARCH),
+                                                                num_layers=MLA_SERVE_LAYERS))
+    train_census(totals, "OLMOE-TRAIN", moe_train_config())
+    recurrent_census(totals)
 
-    decode_census("OLMOE-SERVE", get_config(MOE_ARCH))
-    decode_census("DEEPSEEK-SERVE", dataclasses.replace(get_config(MLA_ARCH),
-                                                        num_layers=MLA_SERVE_LAYERS))
-    model, state, step_fn, ld = moe_train_setup()
 
-    def moe_steps():
-        nonlocal state
-        for i in range(CENSUS_TRAIN_STEPS):
-            x, y = ld.batch(i)
-            state, _ = step_fn(state, {"tokens": x, "targets": y})
-
-    totals["OLMOE-TRAIN"] = census(f"OLMOE-TRAIN {CENSUS_TRAIN_STEPS} train steps",
-                                   moe_steps).total
-    del model, state, step_fn
-    torch.cuda.empty_cache()
+def recurrent_census(totals):
+    """Phase 10's recurrent runs: an RWKV6-SERVE and a JAMBA-SERVE decode
+    step, and CENSUS_TRAIN_STEPS RWKV6-TRAIN steps."""
+    from repro_torch.configs import get_config
+    decode_census(totals, "RWKV6-SERVE", get_config(RWKV_ARCH))
+    decode_census(totals, "JAMBA-SERVE", jamba_serve_config())
+    train_census(totals, "RWKV6-TRAIN", rwkv_train_config())
 
 
 def main() -> int:
@@ -2608,9 +2765,11 @@ def main() -> int:
     serve_probe_launches, serve_ingest_launches = serving_service(kernels)
     serving_lm()
     serving_moe()
+    serving_recurrent()
     train_launches = training_full_width(kernels)
     training_check()
     training_moe()
+    training_recurrent()
     host_sync_census(syn1m)
     del syn1m
     for row in rows:

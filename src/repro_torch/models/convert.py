@@ -14,7 +14,10 @@ leading ``n_repeat`` axis; unscanned, ``unit[j]`` is a list of
 ``r`` of unit entry ``j``. A parameter's name in the port is its path
 in the reference's tree joined by dots (layer ``i``'s under
 ``stack.layers.<i>``, the MTP layer's under ``mtp``), for every layer
-kind; matrices keep the reference's orientation.
+kind; matrices keep the reference's orientation. A Mamba layer's
+parameters sit under ``mamba``, an RWKV layer's under ``rwkv``, as in the
+reference's tree; a scanned ``a_log`` (broadcast over the stack) is
+sliced as any other leaf.
 """
 from __future__ import annotations
 
@@ -101,12 +104,19 @@ def train_state_from_jax(cfg: ModelConfig, tree: Dict, state: Dict) -> Dict:
     return state
 
 
+# cache leaves kept in float32 whatever the compute dtype: the recurrent
+# states of RWKV and Mamba
+_F32_CACHE = ("state", "h")
+
+
 def caches_from_jax(cfg: ModelConfig, caches: Dict, device) -> List[Dict]:
     """The reference's caches -> the port's list (one cache a layer:
-    ``k``/``v`` for attention, ``c_kv``/``k_rope`` for MLA, and ``pos``)."""
+    ``k``/``v`` and ``pos`` for attention, ``c_kv``/``k_rope`` and ``pos``
+    for MLA, ``h``/``conv`` for Mamba, ``state``/``x_prev`` for RWKV)."""
     def one(c):
         return {k: int(np.asarray(v)) if k == "pos" else
-                torch.from_numpy(np.array(v, np.float32)).to(device, cfg.cdtype)
+                torch.from_numpy(np.array(v, np.float32)).to(
+                    device, torch.float32 if k in _F32_CACHE else cfg.cdtype)
                 for k, v in c.items()}
     return [one(c) for c in _layer_trees(cfg, caches)]
 

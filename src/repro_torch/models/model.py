@@ -1,9 +1,11 @@
 """Model facade: the decoder-only families from their ModelConfig.
 
 Port of the JAX package's ``models/model.py`` for the dense family
-(tinyllama-1.1b, internlm2-20b, mistral-nemo-12b, stablelm-3b) and the
-MoE family, with MLA and multi-token prediction (olmoe-1b-7b,
-deepseek-v3-671b):
+(tinyllama-1.1b, internlm2-20b, mistral-nemo-12b, stablelm-3b), the MoE
+family, with MLA and multi-token prediction (olmoe-1b-7b,
+deepseek-v3-671b), the hybrid family (jamba-1.5-large-398b: Mamba layers
+with an attention layer in every ``attn_period``) and the ssm family
+(rwkv6-1.6b: RWKV-6 layers):
 
     model = build_model(cfg, device="cuda", generator=g)  # seeded weights
     logits, aux = model.apply(batch)                      # forward
@@ -22,8 +24,8 @@ token t+2, and ``loss`` adds 0.3 of its cross-entropy.
 ``build_model`` returns the weights frozen (``requires_grad`` off), so
 ``apply`` and ``loss`` build no graph; ``training.train_loop`` turns
 gradients on and differentiates ``loss``. ``prefill`` and
-``decode_step`` (serving) always run without autograd. The hybrid, ssm,
-enc-dec and vlm families raise ``NotImplementedError`` (ROADMAP A10b).
+``decode_step`` (serving) always run without autograd. The enc-dec and
+vlm families raise ``NotImplementedError`` (ROADMAP A10b-4).
 The reference's sharding annotations (``lshard``) have no counterpart on
 one card.
 """
@@ -39,7 +41,7 @@ from . import layers, transformer
 from .config import ModelConfig
 
 # the families build_model builds
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
@@ -115,14 +117,17 @@ class Model(nn.Module):
         return total, metrics
 
     def init_caches(self, batch: int, max_len: int) -> List:
-        """One zeroed cache a layer (KV for attention, latent for MLA), in
-        layer order, on the model's device."""
+        """One zeroed cache a layer (KV for attention, latent for MLA, the
+        recurrent state for Mamba and RWKV), in layer order, on the model's
+        device."""
         return self.stack.init_caches(batch, max_len, self.device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict, caches: List) -> tuple:
         """The whole prompt through the caches at once; logits of the last
-        position. Positions are rotated from 0, as in the reference."""
+        position. Positions are rotated from 0, as in the reference. A
+        Mamba layer steps its state by the prompt's first token only
+        (ROADMAP Queue C, LM fault 6), as the reference's does."""
         x, caches, _, _ = self._backbone(batch["tokens"], caches=caches)
         return self._head(x[:, -1:]), caches
 
@@ -137,14 +142,14 @@ class Model(nn.Module):
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> Model:
-    """The decoder of ``cfg`` (dense or MoE, with attention or MLA, with or
-    without MTP) with seeded random weights on ``device`` (None means the
+    """The decoder of ``cfg`` (dense, MoE, hybrid or ssm; with attention,
+    MLA, Mamba or RWKV mixers; with or without MTP) with seeded random weights on ``device`` (None means the
     card; ``"meta"`` allocates nothing), frozen. ``generator`` must live
     on that device; None seeds one with 0."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
-            f"{FAMILIES} (ROADMAP A10b)")
+            f"{FAMILIES} (ROADMAP A10b-4)")
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)

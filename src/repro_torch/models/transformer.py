@@ -1,13 +1,15 @@
 """Decoder-only layer stack.
 
-Port of the JAX package's ``models/transformer.py`` for the dense and
-MoE families. ``layer_specs`` and ``split_prefix_unit`` are the
-reference's (the decomposition is what ``convert`` needs to read its
+Port of the JAX package's ``models/transformer.py`` for the dense, MoE,
+hybrid and ssm families. ``layer_specs`` and ``split_prefix_unit`` are
+the reference's (the decomposition is what ``convert`` needs to read its
 parameter and cache trees). The port builds the layer kinds
-``(mixer, ffn)`` with mixer ``"attn"`` (``attention.Attention``) or
-``"mla"`` (``mla.MLA``) and ffn ``"mlp"`` (``layers.MLP``) or ``"moe"``
-(``moe.MoE``); ``"mamba"`` and ``"rwkv"`` raise ``NotImplementedError``
-(ROADMAP A10b-3).
+``(mixer, ffn)`` of ``SUPPORTED``: mixer ``"attn"``
+(``attention.Attention``), ``"mla"`` (``mla.MLA``), ``"mamba"``
+(``mamba.Mamba``) or ``"rwkv"`` (``rwkv.RWKV``), and ffn ``"mlp"``
+(``layers.MLP``) or ``"moe"`` (``moe.MoE``). A layer holds its mixer
+under the reference's key: ``attn`` for attention and MLA, ``mamba``,
+``rwkv``.
 
 Eager PyTorch has no scan, so the port keeps one ``nn.ModuleList`` of
 layers in layer order (prefix, then the unit repeated ``n_repeat``
@@ -29,11 +31,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from . import attention, layers, mla, moe
+from . import attention, layers, mamba, mla, moe, rwkv
 from .config import ModelConfig
 
 LayerSpec = Tuple[str, str]  # (mixer_kind, ffn_kind)
-SUPPORTED = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"))
+SUPPORTED = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"),
+             ("mamba", "mlp"), ("mamba", "moe"), ("rwkv", "mlp"))
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -85,15 +88,19 @@ def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
     raise ValueError(f"remat {remat!r}: none, full or selective")
 
 
-_MIXERS = {"attn": attention.Attention, "mla": mla.MLA}
+_MIXERS = {"attn": attention.Attention, "mla": mla.MLA, "mamba": mamba.Mamba,
+           "rwkv": rwkv.RWKV}
+# the mixer's key in the reference's layer tree
+_MIXER_KEYS = {"attn": "attn", "mla": "attn", "mamba": "mamba", "rwkv": "rwkv"}
 _FFNS = {"mlp": layers.MLP, "moe": moe.MoE}
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm mixer (``attn``: attention or MLA) then a pre-norm FFN
-    (``mlp`` or ``moe``), each residual. Returns (x, cache, aux,
-    dropped): the MoE's aux loss (float32) and dropped count (int32), or
-    None after a dense FFN."""
+    """Pre-norm mixer (``attn``: attention or MLA; ``mamba``; ``rwkv``)
+    then a pre-norm FFN (``mlp`` or ``moe``), each residual. Returns (x,
+    cache, aux, dropped): the MoE's aux loss (float32) and dropped count
+    (int32), or None after a dense FFN. The recurrent mixers ignore
+    ``positions``."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device, generator):
         super().__init__()
@@ -101,14 +108,15 @@ class DecoderLayer(nn.Module):
         self.spec = spec
         mixer, ffn = spec
         self.pre_norm = layers.zeros_param((cfg.d_model,), cfg.pdtype, device)
-        self.attn = _MIXERS[mixer](cfg, device, generator)
+        self.mixer_key = _MIXER_KEYS[mixer]
+        setattr(self, self.mixer_key, _MIXERS[mixer](cfg, device, generator))
         self.post_norm = layers.zeros_param((cfg.d_model,), cfg.pdtype, device)
         setattr(self, ffn, _FFNS[ffn](cfg, device, generator))
 
     def forward(self, x, positions=None, cache=None):
         eps = self.cfg.norm_eps
-        y, cache = self.attn(layers.rms_norm(x, self.pre_norm, eps),
-                             positions=positions, cache=cache)
+        y, cache = getattr(self, self.mixer_key)(layers.rms_norm(x, self.pre_norm, eps),
+                                                 positions=positions, cache=cache)
         x = x + y
         h = layers.rms_norm(x, self.post_norm, eps)
         if self.spec[1] == "moe":
@@ -126,8 +134,8 @@ class Stack(nn.Module):
         unsupported = sorted(set(specs) - set(SUPPORTED))
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: layer kinds {unsupported} are not ported; the "
-                f"port builds {sorted(SUPPORTED)} layers (ROADMAP A10b)")
+                f"{cfg.name}: layer kinds {unsupported} are not ported (no config "
+                f"of the registry has them); the port builds {sorted(SUPPORTED)} layers")
         self.cfg = cfg
         self.specs = specs
         self.prefix, self.unit, self.n_repeat = split_prefix_unit(specs)
@@ -173,7 +181,23 @@ class Stack(nn.Module):
                 dropped_total = dropped_total + dropped_u
         return x, new_caches, aux_total, dropped_total
 
+    def stacked(self, i: int) -> bool:
+        """Whether layer ``i``'s leaves carry the stack axis in the
+        reference's tree (a repeat of a scanned unit)."""
+        return self.cfg.scan_layers and i >= len(self.prefix)
+
     def init_caches(self, batch: int, max_len: int, device) -> List:
-        init = {"attn": attention.init_cache, "mla": mla.init_mla_cache}
-        return [init[mixer](self.cfg, batch, max_len, device)
-                for mixer, _ in self.specs]
+        """One zeroed cache a layer, of its mixer's kind (a recurrent
+        state has no ``max_len``)."""
+        cfg = self.cfg
+
+        def one(mixer):
+            if mixer == "attn":
+                return attention.init_cache(cfg, batch, max_len, device)
+            if mixer == "mla":
+                return mla.init_mla_cache(cfg, batch, max_len, device)
+            if mixer == "mamba":
+                return mamba.init_mamba_cache(cfg, batch, device)
+            return rwkv.init_rwkv_cache(cfg, batch, device)
+
+        return [one(mixer) for mixer, _ in self.specs]

@@ -1,5 +1,6 @@
 """Batched serving engine: continuous-batching decode over the port's
-decoder-only models (dense and MoE, attention or MLA caches).
+decoder-only models (dense, MoE, hybrid and ssm; attention, MLA, Mamba
+or RWKV caches).
 
 Port of the JAX package's ``serving/engine.py``. A slot-based scheduler:
 a fixed batch of decode slots; finished sequences free their slot, queued
@@ -10,7 +11,8 @@ The slot scheduling is the reference's, its quirk included: a request is
 admitted by feeding its prompt one token at a time through the shared
 decode step with token 0 in every other slot, so every slot's cache gains
 a row and the one shared ``pos`` advances for all of them (ROADMAP
-Queue C).
+Queue C). A recurrent cache (Mamba, RWKV) likewise absorbs the token 0
+of every other slot into that slot's state.
 """
 from __future__ import annotations
 
@@ -56,16 +58,20 @@ class ServingEngine:
         self.slot_remaining = np.zeros(batch_slots, np.int64)
         self.queue: List[Request] = []
         self.results: List[Result] = []
+        self.n_steps = 0
 
     def _step(self, tokens: np.ndarray):
         tok = torch.from_numpy(tokens).to(self.model.device)  # repro: noqa[R001] the host tokens, uploaded
         logits, self.caches = self.model.decode_step(tok, self.caches)
+        self.n_steps += 1
         return logits
 
     @property
     def pos(self) -> int:
-        """History rows written to the shared caches (all slots)."""
-        return self.caches[0]["pos"]
+        """Decode steps run over the shared caches (all slots): the history
+        rows an attention cache holds, the tokens a recurrent state has
+        absorbed."""
+        return self.n_steps
 
     def submit(self, req: Request):
         self.queue.append(req)

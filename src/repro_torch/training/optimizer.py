@@ -4,9 +4,11 @@ tensors.
 Port of the JAX package's ``training/optimizer.py``, formula for
 formula: the gradients clipped by their global norm, bias-corrected
 moments in float32, decoupled weight decay on tensors of two or more
-dims only, each parameter cast to float32, updated and cast back to its
-own dtype (no float32 master copy: the reference keeps none), the
-moments stored in ``moment_dtype``. ``torch.optim.AdamW`` is not used:
+dims only (in the reference's tree: ``decayed`` names them where the
+port's shapes differ, see ``train_loop.decayed_names``), each parameter
+cast to float32, updated and cast back to its own dtype (no float32
+master copy: the reference keeps none), the moments stored in
+``moment_dtype``. ``torch.optim.AdamW`` is not used:
 its decoupled decay rounds differently.
 
 The reference returns new trees; here ``adamw_update`` writes the
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Collection, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -65,10 +67,12 @@ def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
-                 grads: Dict[str, torch.Tensor], state: Dict
+                 grads: Dict[str, torch.Tensor], state: Dict,
+                 decayed: Optional[Collection[str]] = None
                  ) -> Tuple[Dict, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step in place: (params, state, {"grad_norm", "lr"}), the
-    norm reported before clipping."""
+    norm reported before clipping. ``decayed``: the names that take weight
+    decay; None decays each tensor of two or more dims."""
     step = state["step"] + 1
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -82,7 +86,8 @@ def adamw_update(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
         mu32 = mu.to(torch.float32) * b1 + (1 - b1) * g
         nu32 = nu.to(torch.float32) * b2 + (1 - b2) * g * g
         update = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
-        if p.ndim >= 2:  # decay matrices only (standard practice)
+        # decay matrices only (standard practice)
+        if (p.ndim >= 2) if decayed is None else (k in decayed):
             update = update + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * update)
         mu.copy_(mu32)

@@ -18,7 +18,7 @@ restore (``checkpoint.restore``) fills them in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Set
 
 import torch
 from torch.profiler import record_function
@@ -51,11 +51,29 @@ def init_train_state(model, tcfg: TrainConfig) -> Dict[str, Any]:
     return state
 
 
+def decayed_names(model) -> Set[str]:
+    """The parameters AdamW decays: those of two or more dims in the
+    reference's tree, where each leaf of a scanned unit carries one more
+    (the stack axis). So with ``scan_layers`` a unit layer's vectors (its
+    norms, RWKV's ``decay_base``, ``bonus`` and ``ln_x``, Mamba's
+    ``dt_bias`` and ``d_skip``) are decayed, and unscanned they are not
+    (ROADMAP Queue C, training fault 4)."""
+    out = set()
+    for k, p in model.named_parameters():
+        parts = k.split(".")
+        stacked = (parts[:2] == ["stack", "layers"]
+                   and model.stack.stacked(int(parts[2])))
+        if p.ndim + stacked >= 2:
+            out.add(k)
+    return out
+
+
 def make_train_step(model, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``, the state
     updated in place. Metrics (0-dim tensors, nothing read back): loss,
     ce, moe_aux, moe_dropped, grad_norm, lr."""
     names = [k for k, _ in model.named_parameters()]
+    decayed = decayed_names(model)
 
     def grad_of(params, batch):
         loss, metrics = model.loss(batch)
@@ -95,7 +113,8 @@ def make_train_step(model, tcfg: TrainConfig):
                 for k, e in new_efb.items():
                     state["error_fb"][k].copy_(e)
         with record_function("train.optimizer"):
-            _, _, opt_metrics = adamw_update(tcfg.opt, params, grads, state["opt"])
+            _, _, opt_metrics = adamw_update(tcfg.opt, params, grads, state["opt"],
+                                              decayed)
         state["step"] += 1
         return state, {"loss": loss, **metrics, **opt_metrics}
 

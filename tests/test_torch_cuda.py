@@ -537,3 +537,67 @@ def test_checkpoint_restores_across_devices(dev, tmp_path):
     checkpoint.save(str(tmp_path / "b"), 0, on_card)
     back = checkpoint.restore(str(tmp_path / "b"), {k: torch.zeros_like(v) for k, v in tree.items()})
     assert all(torch.equal(v, tree[k]) for k, v in back.items())
+
+
+def _no_tf32():
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return matmul, cudnn
+
+
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_recurrent_mixers_cuda_equal_cpu(dev, kind):
+    """RWKV (both WKV forms) and Mamba (the chunked path over three chunks,
+    then cached steps) at the reduced widths in float32, TF32 off, with the
+    same weights on the card and on the CPU: outputs and caches within
+    atol 1e-4."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import mamba, rwkv
+    if kind == "rwkv":
+        cfgs = [dataclasses.replace(reduced_config("rwkv6-1.6b"), rwkv_impl=impl,
+                                    rwkv_chunk=16) for impl in ("scan", "chunked")]
+        make, init_cache = rwkv.RWKV, rwkv.init_rwkv_cache
+    else:
+        cfgs = [reduced_config("jamba-1.5-large-398b")]
+        make, init_cache = mamba.Mamba, mamba.init_mamba_cache
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 48, cfgs[0].d_model)).astype(np.float32))
+    saved = _no_tf32()
+    try:
+        for cfg in cfgs:
+            cpu = make(cfg, "cpu", torch.Generator().manual_seed(0)).requires_grad_(False)
+            card = make(cfg, dev, None).requires_grad_(False)
+            card.load_state_dict(cpu.state_dict())
+            torch.testing.assert_close(card(x.to(dev))[0].cpu(), cpu(x)[0], rtol=0, atol=1e-4)
+            cc, gc = init_cache(cfg, 2, "cpu"), init_cache(cfg, 2, dev)
+            for t in range(4):
+                want, cc = cpu(x[:, t:t + 1], cache=cc)
+                got, gc = card(x[:, t:t + 1].to(dev), cache=gc)
+                torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+            for k in cc:
+                torch.testing.assert_close(gc[k].cpu(), cc[k], rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_recurrent_decode_step_cuda_equals_cpu(dev, arch):
+    """One decode step of the reduced rwkv6 and jamba models in float32
+    (TF32 off) from fresh caches, the same weights on the card and on the
+    CPU: logits within atol 1e-4."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    cfg = reduced_config(arch)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 1)).astype(np.int32))
+    saved = _no_tf32()
+    try:
+        got, _ = card.decode_step(tok.to(dev), card.init_caches(3, 16))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want, _ = cpu.decode_step(tok, cpu.init_caches(3, 16))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -112,29 +112,33 @@ def test_parameter_count_at_full_width(arch):
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "jamba-1.5-large-398b", "rwkv6-1.6b",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"])
 def test_unsupported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="A10b"):
         build_model(configs.reduced_config(arch), device="cpu")
 
 
 def test_unsupported_options_raise_and_the_card_is_the_default(monkeypatch):
-    """MTP, MoE layers and MLA build on the dense config (and run a
-    forward); the hybrid family still raises; the card is the default."""
+    """MTP, MoE layers, MLA and the hybrid family's Mamba layers build on
+    the dense config (and run a forward); the enc-dec family still raises;
+    an RWKV layer with a MoE FFN, a kind no config has, raises; the card
+    is the default."""
     cfg = configs.reduced_config("tinyllama-1.1b")
     mla = {k: getattr(configs.reduced_config("deepseek-v3-671b"), k)
            for k in ("q_lora_rank", "kv_lora_rank", "rope_head_dim", "nope_head_dim",
                      "v_head_dim")}
     for change in (dict(mtp=True), dict(moe_num_experts=4, moe_top_k=2, moe_d_ff=32),
-                   dict(use_mla=True, **mla)):
+                   dict(use_mla=True, **mla), dict(family="hybrid", attn_period=2)):
         model = build_model(dataclasses.replace(cfg, **change), device="cpu")
         tokens = torch.ones((1, 4), dtype=torch.int32)
         logits, aux = model.apply({"tokens": tokens, "targets": tokens})
         assert logits.shape == (1, 4, cfg.vocab_size) and torch.isfinite(logits).all()
         assert ("mtp_logits" in aux) == bool(change.get("mtp"))
     with pytest.raises(NotImplementedError, match="A10b"):
-        build_model(dataclasses.replace(cfg, family="hybrid", attn_period=2), device="cpu")
+        build_model(dataclasses.replace(cfg, family="encdec"), device="cpu")
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        build_model(dataclasses.replace(cfg, family="ssm", moe_num_experts=4, moe_top_k=2,
+                                        moe_d_ff=32), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
