@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       traffic timed with CUDA events (the dropped tokens summed), ten
       decode steps profiled and one Model.loss forward at full width
       (finite ce, moe_aux, mtp_ce); then cuda == cpu in float32 (TF32
-      off) at olmoe's widths on 2 layers and at deepseek's reduced
+      off) at olmoe's widths on 1 layer and at deepseek's reduced
       config: first-step logits within 1e-3 and equal tokens, or tokens
       that part only after a routing near tie (margin under 1e-5),
       printed;
@@ -132,8 +132,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       them with MoE FFNs, and the attention layer), each as 8c's cells
       (parameter count on the meta device, 8b's traffic, the dropped
       tokens, ten profiled decode steps, one full-width Model.loss); then
-      cuda == cpu in float32 (TF32 off) at rwkv6's widths on 2 layers
+      cuda == cpu in float32 (TF32 off) at rwkv6's widths on 1 layer
       (equal tokens) and at jamba's reduced config (8c's rule);
+   e. the encoder-decoder and VLM families: WHISPER-SERVE (whisper-medium
+      as published, its parameter count checked on the meta device): 8
+      requests of 1500 seeded frames and 4-token prompts through
+      Model.encode, Model.prefill and 32 greedy decode steps with
+      {"enc_out"} (the engine cannot serve this family), encode, prefill
+      and step ms from CUDA events, ten decode steps profiled, one
+      full-size Model.loss; INTERNVL-SERVE (internvl2-76b at its
+      published widths cut to 40 of 80 layers) as 8c's cells, then a
+      patch prefill of 8 x (256 patches + 16 tokens) and 32 decode
+      steps, timed; then cuda == cpu in float32 (TF32 off) at the reduced
+      configs: whisper's encode, prefill and 8 decode steps (logits
+      within 1e-4 of the largest, equal tokens), internvl's engine
+      (8c's rule) and its patch prefill (logits within 1e-3, equal
+      tokens);
 9. training (``repro_torch.launch.train``, ``repro_torch.training``):
    a. the launcher on tinyllama-1.1b as published (bfloat16, seeded
       weights on the card, remat "full"), --dedup at its defaults (3,000
@@ -164,14 +178,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       train step as 9c (6 steps, steps 2-6 timed, one more profiled);
       then the reduced rwkv6 and jamba configs cuda == cpu as 9c holds
       its families;
+   e. WHISPER-TRAIN: whisper-medium as published through the train step
+      (bfloat16, remat "full") on train_batch(cfg, 1500, 8): 6 steps,
+      steps 3-6 timed with CUDA events, frames and tokens a second, every
+      loss finite, peak memory; one more step profiled; then the reduced
+      config cuda == cpu as 9c holds its families;
 10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
     run of each path under torch's sync debug mode, none of them timed:
     SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
     SERVE50K probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
     launch/train.py --dedup for two TINYLLAMA-TRAIN steps, an OLMOE-SERVE
     and a DEEPSEEK-SERVE decode step, two OLMOE-TRAIN steps, an
-    RWKV6-SERVE and a JAMBA-SERVE decode step and two RWKV6-TRAIN steps
-    (4 layers).
+    RWKV6-SERVE and a JAMBA-SERVE decode step, two RWKV6-TRAIN steps
+    (4 layers), a WHISPER-SERVE decode step, INTERNVL-SERVE's patch
+    prefill and two WHISPER-TRAIN steps.
     Each prints its total syncs, the syncs per profiler range and its ten heaviest
     sites with their inventory reasons (``census`` lines); a run that
     counts no sync, or a site of the port whose line carries no
@@ -246,11 +266,12 @@ STREAM_DELTA = 1_000
 # the SYN stream: the SYN1M spec arriving in a seeded order, a base then
 # SYN_STREAM_DELTAS deltas of 1% each through DedupPipeline.extend. Cut
 # from SYN1M's 400,000 entities: at 200,000 one 1% delta took 54 s of host
-# time on an H100 (PERF.md section 4); and from ten deltas to two: each
-# costs about 20 s, twice with its checked replay, and four kept the
+# time on an H100, at 100,000 about 21 s (PERF.md section 4), and 50,000
+# since phases 8e and 9e came; and from ten deltas to one: each costs
+# about 20 s at 100,000, twice with its checked replay; four kept the
 # script too near its time limit once phases 8d and 9d came
-SYN_STREAM_ENTITIES = 100_000
-SYN_STREAM_DELTAS = 2
+SYN_STREAM_ENTITIES = 50_000
+SYN_STREAM_DELTAS = 1
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
 TRI_EXTREME_SLOTS = 1 << 20
 
@@ -1883,8 +1904,13 @@ def lm_param_count(cfg):
     an RWKV block for ``6d^2 + 2d`` (it holds five (d, d) matrices, the
     decay LoRA and eight vectors of d) and leaves out a Mamba layer's
     ``conv``, ``w_dt``, ``w_dt_out``, ``a_log``, ``dt_bias`` and
-    ``d_skip``."""
+    ``d_skip``. For the encdec family: ``total_params()`` plus ``dec_pos``
+    (65,536 rows) and the layer norms' weights and biases and the MLP
+    biases it leaves out."""
     d = cfg.d_model
+    if cfg.family == "encdec":
+        return (cfg.total_params() + (1 << 16) * d + cfg.encoder_layers * (5 * d + cfg.d_ff)
+                + cfg.decoder_layers * (7 * d + cfg.d_ff) + 4 * d)
     per_layer = 2 * d + (cfg.q_lora_rank + cfg.kv_lora_rank if cfg.use_mla else 0)
     n = cfg.total_params() + cfg.num_layers * per_layer + d
     if cfg.mtp:
@@ -2015,11 +2041,12 @@ LOSS_BATCH, LOSS_SEQ = 1, 128
 # the cuda == cpu check: olmoe's widths at MOE_CHECK_LAYERS layers and
 # deepseek's reduced config in float32, TF32 off, over the first LM_SLOTS
 # requests with MOE_CHECK_NEW new tokens each (the cpu run reads olmoe's
-# 4.2 GB of float32 weights a step). Routing is discrete: a request's tokens
-# may part only where the two devices route a token differently and that
-# token's k-th and (k+1)-th router probabilities lie within
-# ROUTE_TIE_MARGIN
-MOE_CHECK_LAYERS = 2
+# float32 weights every step: at 2 layers it took 48.9 s of the script's
+# time, so one layer since phases 8e and 9e came). Routing is discrete: a
+# request's tokens may part only where the two devices route a token
+# differently and that token's k-th and (k+1)-th router probabilities lie
+# within ROUTE_TIE_MARGIN
+MOE_CHECK_LAYERS = 1
 MOE_CHECK_NEW = 16
 ROUTE_TIE_MARGIN = 1e-5
 
@@ -2063,12 +2090,12 @@ def moe_widths(cfg):
             f"{cfg.mtp}")
 
 
-def lm_serve_cell(tag, cfg, widths):
+def lm_serve_cell(tag, cfg, widths, then=None):
     """One LM serving cell on the card: phase 8b's engine run with the
     MoE layers' dropped count summed over it (0 without MoE layers), ten
     profiled decode steps, and one ``Model.loss`` forward on a
-    (LOSS_BATCH, LOSS_SEQ) batch. ``widths`` describes ``cfg`` in the
-    printed line."""
+    (LOSS_BATCH, LOSS_SEQ) batch; then ``then(model)``, if given.
+    ``widths`` describes ``cfg`` in the printed line."""
     from repro_torch.launch import specs
     model, n_params = built_lm(tag, cfg)
     hooks = MoEHooks(model)
@@ -2098,6 +2125,8 @@ def lm_serve_cell(tag, cfg, widths):
         raise AssertionError(f"{tag} loss: {metrics}")
     print(f"{tag}: Model.loss at full width on a ({LOSS_BATCH}, {LOSS_SEQ}) batch: "
           f"{metrics}", flush=True)
+    if then is not None:
+        then(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2126,6 +2155,25 @@ def routed_engine_run(model, reqs):
     return out
 
 
+def tf32_off(run):
+    """``run()`` with TF32 off for matmuls and cuDNN, restored after."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def twins(cfg):
+    """``cfg``'s model on the cpu and on the card with the same weights."""
+    from repro_torch.models.model import build_model
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
 def engine_check(tag, cfg):
     """cuda == cpu for ``cfg`` (float32, TF32 off): the first-step logits
     within LM_LOGIT_ATOL and equal tokens, or tokens that part only after
@@ -2133,18 +2181,10 @@ def engine_check(tag, cfg):
     first decode step whose greedy tokens differ, its margin under
     ROUTE_TIE_MARGIN), printed. Without MoE layers the tokens must be
     equal."""
-    from repro_torch.models.model import build_model
     from repro_torch.serving import smoke as serve_smoke
     reqs = serve_smoke.lm_requests(cfg.vocab_size, LM_SLOTS, MOE_CHECK_NEW)
-    cpu = build_model(cfg, device="cpu")
-    card = build_model(cfg, device="cuda")
-    card.load_state_dict(cpu.state_dict())
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        got = routed_engine_run(card, reqs)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cpu, card = twins(cfg)
+    got = tf32_off(lambda: routed_engine_run(card, reqs))
     want, cpu_s = synced(lambda: routed_engine_run(cpu, reqs))
     del card, cpu
     torch.cuda.empty_cache()
@@ -2201,13 +2241,13 @@ def serving_moe():
 # (mamba, moe), (attn, mlp): the fewest leading layers that hold every
 # layer kind (one period of 8 is about 90 GB in bfloat16, over the card's
 # 80 GB). Both take phase 8b's traffic. The cuda == cpu check: rwkv6's
-# widths at RWKV_CHECK_LAYERS layers and jamba's reduced config (2 full-
-# width layers in float32 would be 42 GB on the host), as engine_check holds
-# them
+# widths at RWKV_CHECK_LAYERS layers (two until phases 8e and 9e came) and
+# jamba's reduced config (2 full-width layers in float32 would be 42 GB on
+# the host), as engine_check holds them
 RWKV_ARCH = "rwkv6-1.6b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA_SERVE_LAYERS = 4
-RWKV_CHECK_LAYERS = 2
+RWKV_CHECK_LAYERS = 1
 
 
 def rwkv_widths(cfg):
@@ -2244,6 +2284,285 @@ def serving_recurrent():
                                               param_dtype="float32", compute_dtype="float32"))
     engine_check("jamba", reduced_config(JAMBA_ARCH))
     print(f"phase 8d: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the encoder-decoder and VLM families (whisper-medium,
+# internvl2-76b)
+# ---------------------------------------------------------------------------
+
+# WHISPER-SERVE: whisper-medium as published, WHISPER_BATCH requests in
+# one batch: (8, 1500, 1024) frames from a numpy seed (a 30-second window
+# after the stubbed conv front end), 4-token prompts, whisper's 448-token
+# decoder context, WHISPER_NEW greedy decode steps. The ServingEngine
+# cannot serve this family (ROADMAP Queue C, LM fault 8), so the cell goes
+# through Model.encode, Model.prefill (which encodes again and decodes the
+# prompt's last token only, LM fault 7) and Model.decode_step with
+# {"enc_out": ...}, each step's tokens up from and down to the host as the
+# engine's are. Every decode step recomputes each decoder layer's cross
+# keys and values from enc_out, as the reference does: 4 * layers * B *
+# frames * d_model^2 FLOPs a step.
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH = 8
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 4
+WHISPER_MAX_LEN = 448
+WHISPER_NEW = 32
+# INTERNVL-SERVE: internvl2-76b at its published widths cut to
+# VLM_SERVE_LAYERS of 80 layers (36.3e9 parameters, 72.7 GB in bfloat16;
+# all 80 are 141 GB and wait for the mesh), phase 8b's engine traffic
+# (text only: the engine feeds no patches), then a patch prefill of
+# WHISPER_BATCH rows of 256 patch embeddings and PATCH_TEXT tokens into
+# the caches and WHISPER_NEW decode steps
+VLM_ARCH = "internvl2-76b"
+VLM_SERVE_LAYERS = 40
+PATCH_TEXT = 16
+# the cuda == cpu checks at the reduced configs (float32, TF32 off):
+# whisper on CHECK_FRAMES frames with CHECK_NEW decode steps, internvl's
+# engine_check and its patch prefill with CHECK_NEW decode steps. The
+# encoder output and internvl's logits within LM_LOGIT_ATOL; whisper's
+# logits within WHISPER_LOGIT_RTOL of the largest |logit|: its embedding
+# is tied and drawn at scale 1 (the reference's init), so the reduced
+# model's logits reach 31, and float32 rounding grows with them (the cpu
+# tests measure each package 2.5e-4 / 3.3e-4 from float64 on logits of
+# 15); an H100 80GB HBM3 run gave 9.8e-4 against 31 (PERF.md section 6)
+CHECK_FRAMES = 64
+CHECK_NEW = 8
+WHISPER_LOGIT_RTOL = 1e-4
+
+
+def whisper_run(model, frames, prompts, steps, max_len, events=None, keep=False):
+    """The WHISPER-SERVE loop: ``Model.encode`` of ``frames``, a prefill of
+    the (B, P) ``prompts`` into fresh caches, ``steps`` greedy decode
+    steps over ``enc_out``. ``events``: four CUDA events recorded before
+    the encode, after it, after the prefill's tokens and after the last
+    step. Returns (enc_out, the greedy tokens (B, steps + 1), each step's
+    logits on the host with ``keep``, else [])."""
+    from repro_torch.serving import smoke as serve_smoke
+    mark = (lambda i: events[i].record()) if events else (lambda i: None)
+    caches = model.init_caches(frames.shape[0], max_len)
+    tok = torch.from_numpy(prompts).to(frames.device)
+    mark(0)
+    with torch.no_grad():
+        enc_out = model.encode(frames)
+    mark(1)
+    logits, caches = model.prefill({"frames": frames, "tokens": tok}, caches)
+    nxt = serve_smoke.greedy(logits)
+    mark(2)
+    toks, kept = [nxt], [logits.float().cpu()] if keep else []
+    for _ in range(steps):
+        nxt, logits, caches = serve_smoke.greedy_step(model, nxt, caches,
+                                                      {"enc_out": enc_out})
+        toks.append(nxt)
+        if keep:
+            kept.append(logits.float().cpu())
+    mark(3)
+    return enc_out, np.concatenate(toks, axis=1), kept
+
+
+def patch_run(model, patches, tokens, steps, max_len, events=None, keep=False):
+    """The patch prefill: (B, P) patch embeddings and (B, T) tokens into
+    fresh caches in one prefill, then ``steps`` greedy decode steps (no
+    patches). ``events``: three CUDA events recorded before the prefill,
+    after its tokens and after the last step. Returns (the greedy tokens
+    (B, steps + 1), each step's logits on the host with ``keep``)."""
+    from repro_torch.serving import smoke as serve_smoke
+    mark = (lambda i: events[i].record()) if events else (lambda i: None)
+    caches = model.init_caches(patches.shape[0], max_len)
+    mark(0)
+    logits, caches = model.prefill({"patches": patches, "tokens": tokens}, caches)
+    nxt = serve_smoke.greedy(logits)
+    mark(1)
+    if caches[0]["pos"] != patches.shape[1] + tokens.shape[1]:
+        raise AssertionError(f"patch prefill: pos {caches[0]['pos']}")
+    toks, kept = [nxt], [logits.float().cpu()] if keep else []
+    for _ in range(steps):
+        nxt, logits, caches = serve_smoke.greedy_step(model, nxt, caches)
+        toks.append(nxt)
+        if keep:
+            kept.append(logits.float().cpu())
+    mark(2)
+    return np.concatenate(toks, axis=1), kept
+
+
+def encdec_inputs(cfg, batch, frames, prompt, device):
+    """(frames, prompts) from numpy seed 0: ``train_batch``'s frames
+    (``standard_normal`` cast to the compute dtype) and (batch, prompt)
+    tokens in 1..vocab-1."""
+    from repro_torch.launch import specs
+    x = specs.train_batch(cfg, frames, batch, concrete=True, rng=np.random.default_rng(0),
+                          device=device)["frames"]
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (batch, prompt))
+    return x, prompts.astype(np.int32)
+
+
+def patch_inputs(cfg, batch, text, device):
+    """(patches, tokens) from numpy seed 2: ``train_batch``'s patches and
+    (batch, text) tokens."""
+    from repro_torch.launch import specs
+    b = specs.train_batch(cfg, cfg.num_patches + text, batch, concrete=True,
+                          rng=np.random.default_rng(2), device=device)
+    return b["patches"], b["tokens"]
+
+
+def vlm_serve_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_SERVE_LAYERS)
+
+
+def whisper_serve():
+    """WHISPER-SERVE on the card: a warm-up, the timed loop, ten profiled
+    decode steps and ``Model.loss`` on ``train_batch(cfg, 1500, 8)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.serving import smoke as serve_smoke
+    cfg = get_config(WHISPER_ARCH)
+    model, n_params = built_lm("WHISPER-SERVE", cfg)
+    frames, prompts = encdec_inputs(cfg, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT,
+                                    "cuda")
+    whisper_run(model, frames, prompts, 2, WHISPER_MAX_LEN)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    enc_out, toks, _ = whisper_run(model, frames, prompts, WHISPER_NEW, WHISPER_MAX_LEN,
+                                   events)
+    torch.cuda.synchronize()
+    encode_ms, prefill_ms, steps_ms = (events[i].elapsed_time(events[i + 1])
+                                       for i in range(3))
+    if not (toks.shape == (WHISPER_BATCH, WHISPER_NEW + 1)
+            and ((0 <= toks) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"WHISPER-SERVE: tokens {toks.shape}, {toks.min()}..{toks.max()}")
+    d, layers = cfg.d_model, cfg.decoder_layers
+    cross_flop = 4 * layers * WHISPER_BATCH * WHISPER_FRAMES * d * d
+    new = WHISPER_BATCH * (WHISPER_NEW + 1)
+    print(f"WHISPER-SERVE: {cfg.name} ({cfg.encoder_layers}+{layers} layers, d_model {d}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}; {n_params} parameters, equal to "
+          f"lm_param_count) {WHISPER_BATCH} requests of {WHISPER_FRAMES} frames and "
+          f"{WHISPER_PROMPT}-token prompts, max_len {WHISPER_MAX_LEN}: encode_ms={encode_ms} "
+          f"prefill_ms={prefill_ms} step_ms={steps_ms / WHISPER_NEW} over {WHISPER_NEW} "
+          f"decode steps; tokens_per_s={new / ((encode_ms + prefill_ms + steps_ms) / 1e3)} "
+          f"({new} tokens, encode to last step) decode_tokens_per_s="
+          f"{WHISPER_BATCH * WHISPER_NEW / (steps_ms / 1e3)}; cross K/V recompute "
+          f"{cross_flop} FLOP a step ({cross_flop / 989e12 * 1e3} ms at the bf16 peak); "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}", flush=True)
+    caches = model.init_caches(WHISPER_BATCH, WHISPER_MAX_LEN)
+    _, caches = model.prefill({"frames": frames, "tokens": torch.from_numpy(prompts).cuda()},
+                              caches)
+    tok = toks[:, -1:]
+    batch = {"enc_out": enc_out}
+    _, wall10, busy10, launches10, _ = profile_breakdown(
+        lambda: [serve_smoke.greedy_step(model, tok, caches, batch) for _ in range(10)],
+        tag="WHISPER-SERVE decode x10")
+    print(f"WHISPER-SERVE: a profiled decode step: wall_ms={wall10 * 100} device_busy_ms="
+          f"{busy10 * 100} device_idle_share={1 - busy10 / wall10:.4f} "
+          f"launches={launches10 / 10}", flush=True)
+    del caches, enc_out, batch
+    train = specs.train_batch(cfg, WHISPER_FRAMES, WHISPER_BATCH, concrete=True,
+                              rng=np.random.default_rng(0), device="cuda")
+    with torch.no_grad():
+        _, metrics = model.loss(train)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not np.isfinite(metrics["ce"]):
+        raise AssertionError(f"WHISPER-SERVE loss: {metrics}")
+    print(f"WHISPER-SERVE: Model.loss at full size on train_batch(cfg, {WHISPER_FRAMES}, "
+          f"{WHISPER_BATCH}) ({tuple(train['tokens'].shape)} decoder tokens): {metrics}",
+          flush=True)
+    del model, train
+    torch.cuda.empty_cache()
+
+
+def patch_prefill_cell(model):
+    """INTERNVL-SERVE's patch prefill on the card: a warm-up, then the
+    timed prefill and WHISPER_NEW decode steps."""
+    cfg = model.cfg
+    patches, tokens = patch_inputs(cfg, WHISPER_BATCH, PATCH_TEXT, "cuda")
+    patch_run(model, patches, tokens, 1, LM_MAX_LEN)
+    torch.cuda.empty_cache()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    toks, _ = patch_run(model, patches, tokens, WHISPER_NEW, LM_MAX_LEN, events)
+    torch.cuda.synchronize()
+    prefill_ms, steps_ms = (events[i].elapsed_time(events[i + 1]) for i in range(2))
+    if not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("INTERNVL-SERVE patch prefill: tokens out of range")
+    rows = cfg.num_patches + PATCH_TEXT
+    print(f"INTERNVL-SERVE: patch prefill of {WHISPER_BATCH} x ({cfg.num_patches} patches + "
+          f"{PATCH_TEXT} tokens) = {WHISPER_BATCH * rows} rows into the caches: "
+          f"prefill_ms={prefill_ms} prefill_rows_per_s={WHISPER_BATCH * rows / (prefill_ms / 1e3)}"
+          f"; then step_ms={steps_ms / WHISPER_NEW} over {WHISPER_NEW} decode steps; "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}", flush=True)
+
+
+def vlm_widths(cfg):
+    return (f"{cfg.num_layers} of 80 layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"{cfg.num_patches} patches")
+
+
+def held(tag, got, want, bound=LM_LOGIT_ATOL):
+    """The largest |logit| difference over the steps; fails over ``bound``
+    or when the greedy tokens differ."""
+    (gtok, glog), (wtok, wlog) = got, want
+    err = max(float((g - w).abs().max()) for g, w in zip(glog, wlog))
+    if not (len(glog) == len(wlog) and err <= bound and np.array_equal(gtok, wtok)):
+        raise AssertionError(f"{tag}: logits max_abs_err {err} (bound {bound}), tokens "
+                             f"equal {np.array_equal(gtok, wtok)}")
+    return err
+
+
+def encdec_check():
+    """cuda == cpu at the reduced whisper and internvl configs (float32,
+    TF32 off): whisper's encode, prefill and CHECK_NEW chained decode
+    steps; internvl's engine_check and its patch prefill with CHECK_NEW
+    decode steps. Logits within LM_LOGIT_ATOL, greedy tokens equal."""
+    from repro_torch.configs import reduced_config
+    wcfg = reduced_config(WHISPER_ARCH)
+    cpu, card = twins(wcfg)
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        frames, prompts = encdec_inputs(wcfg, WHISPER_BATCH, CHECK_FRAMES, WHISPER_PROMPT, dev)
+        out[dev] = tf32_off(lambda: whisper_run(model, frames, prompts, CHECK_NEW,
+                                                WHISPER_MAX_LEN, keep=True))
+    enc_err = float((out["cuda"][0].cpu() - out["cpu"][0]).abs().max())
+    scale = max(float(w.abs().max()) for w in out["cpu"][2])
+    err = held("whisper check", out["cuda"][1:], out["cpu"][1:],
+               WHISPER_LOGIT_RTOL * max(1.0, scale))
+    if enc_err > LM_LOGIT_ATOL:
+        raise AssertionError(f"whisper check: encode max_abs_err {enc_err}")
+    print(f"whisper check: {wcfg.name} reduced ({wcfg.encoder_layers}+{wcfg.decoder_layers} "
+          f"layers, d_model {wcfg.d_model}) in float32 (TF32 off), {WHISPER_BATCH} x "
+          f"{CHECK_FRAMES} frames, prefill and {CHECK_NEW} decode steps on cuda and cpu: "
+          f"encode max_abs_err={enc_err} (tolerance {LM_LOGIT_ATOL}), logits "
+          f"max_abs_err={err} of a largest |logit| {scale} (tolerance {WHISPER_LOGIT_RTOL} "
+          f"of it), greedy tokens equal", flush=True)
+    del cpu, card
+
+    vcfg = reduced_config(VLM_ARCH)
+    engine_check("internvl", vcfg)
+    cpu, card = twins(vcfg)
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        patches, tokens = patch_inputs(vcfg, WHISPER_BATCH, PATCH_TEXT, dev)
+        out[dev] = tf32_off(lambda: patch_run(model, patches, tokens, CHECK_NEW,
+                                              LM_MAX_LEN, keep=True))
+    err = held("internvl patch check", out["cuda"], out["cpu"])
+    print(f"internvl patch check: {vcfg.name} reduced ({vcfg.num_layers} layers, "
+          f"{vcfg.num_patches} patches) in float32 (TF32 off), a patch prefill of "
+          f"{WHISPER_BATCH} x ({vcfg.num_patches} + {PATCH_TEXT}) rows and {CHECK_NEW} "
+          f"decode steps on cuda and cpu: logits max_abs_err={err} (tolerance "
+          f"{LM_LOGIT_ATOL}), greedy tokens equal", flush=True)
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def serving_encdec():
+    """Phase 8e: WHISPER-SERVE and INTERNVL-SERVE (the engine's traffic,
+    then the patch prefill) on the card, then cuda == cpu at the reduced
+    configs."""
+    t_phase = time.perf_counter()
+    whisper_serve()
+    vlm = vlm_serve_config()
+    lm_serve_cell("INTERNVL-SERVE", vlm, vlm_widths(vlm), then=patch_prefill_cell)
+    encdec_check()
+    print(f"phase 8e: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
 # ---------------------------------------------------------------------------
@@ -2501,7 +2820,7 @@ def reduced_train_check(tag, archs):
     """Each arch's reduced config in float32 (TF32 off) on cuda and cpu
     from the same weights, the query and key projections scaled by
     TRAIN_CHECK_QK_SCALE: TRAIN_CHECK_STEPS train steps give loss, ce,
-    moe_aux and grad_norm within TRAIN_RTOL."""
+    moe_aux (where the family has it) and grad_norm within TRAIN_RTOL."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.model import build_model
     from repro_torch.training import smoke
@@ -2519,14 +2838,14 @@ def reduced_train_check(tag, archs):
                 bs = smoke.batches(small, TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH,
                                    TRAIN_CHECK_SEQ, dev)
                 out[dev] = smoke.train_steps(m, bs)[1]
-            keys = ("loss", "ce", "moe_aux", "grad_norm")
+            keys = [k for k in ("loss", "ce", "moe_aux", "grad_norm") if k in out["cpu"][0]]
             errs = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in keys)
                     for g, w in zip(out["cuda"], out["cpu"])]
             print(f"{tag}: {arch} reduced, qk scale {TRAIN_CHECK_QK_SCALE}, "
                   f"{TRAIN_CHECK_STEPS} steps: cuda losses {[m['loss'] for m in out['cuda']]} "
                   f"cpu {[m['loss'] for m in out['cpu']]}; moe_dropped cuda "
-                  f"{[m['moe_dropped'] for m in out['cuda']]} cpu "
-                  f"{[m['moe_dropped'] for m in out['cpu']]}; max relative error of "
+                  f"{[m.get('moe_dropped') for m in out['cuda']]} cpu "
+                  f"{[m.get('moe_dropped') for m in out['cpu']]}; max relative error of "
                   f"{', '.join(keys)} a step {errs}", flush=True)
             if max(errs) > TRAIN_RTOL:
                 raise AssertionError(f"{tag}: {arch} cuda vs cpu {errs} over "
@@ -2579,6 +2898,90 @@ def training_recurrent():
     print(f"phase 9d: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
+# WHISPER-TRAIN: whisper-medium as published through the train step in
+# bfloat16 with remat "full" on train_batch(cfg, 1500, 8): 8 x 1500
+# frames and 8 x 187 decoder tokens (a batch a step from numpy seeds 0,
+# 1, ...); WHISPER_TRAIN_STEPS steps, the first WHISPER_TRAIN_WARMUP
+# untimed, then WHISPER_TRAIN_PROFILED_STEPS more profiled; then cuda ==
+# cpu on the reduced config over TRAIN_CHECK_STEPS steps. internvl2-76b
+# is not trained on the card (its 40-layer cut alone is 72.7 GB of
+# weights); the CPU tests hold its reduced train step to the reference.
+WHISPER_TRAIN_STEPS = 6
+WHISPER_TRAIN_WARMUP = 2
+WHISPER_TRAIN_PROFILED_STEPS = 1
+
+
+def whisper_train_setup(steps):
+    """(model, state, step function) of WHISPER-TRAIN on the card, with the
+    launcher's optimizer settings over ``steps`` steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
+    model, _ = built_lm("WHISPER-TRAIN", get_config(WHISPER_ARCH))
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=3e-4, warmup_steps=min(20, steps // 4),
+                                           total_steps=steps))
+    return model, init_train_state(model, tcfg), make_train_step(model, tcfg)
+
+
+def whisper_batch(cfg, i):
+    from repro_torch.launch import specs
+    return specs.train_batch(cfg, WHISPER_FRAMES, WHISPER_BATCH, concrete=True,
+                             rng=np.random.default_rng(i), device="cuda")
+
+
+def training_encdec():
+    """Phase 9e: WHISPER-TRAIN on the card, then cuda == cpu at the
+    reduced whisper config."""
+    t_phase = time.perf_counter()
+    steps = WHISPER_TRAIN_STEPS
+    model, state, step_fn = whisper_train_setup(steps)
+    cfg = model.cfg
+    batches = [whisper_batch(cfg, i) for i in range(steps + WHISPER_TRAIN_PROFILED_STEPS)]
+    marks, mets = [], []
+    for b in batches[:steps]:
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        state, m = step_fn(state, b)
+        end.record()
+        marks.append((begin, end))
+        mets.append(m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    losses = [float(m["loss"]) for m in mets]
+    if not (np.isfinite(losses).all() and int(state["step"]) == steps):
+        raise AssertionError(f"WHISPER-TRAIN: losses {losses}, step {int(state['step'])}")
+    timed = step_ms[WHISPER_TRAIN_WARMUP:]
+    secs = sum(timed) / 1e3
+    frames, tokens = batches[0]["frames"].shape[:2], batches[0]["tokens"].shape
+    print(f"WHISPER-TRAIN: {cfg.name} ({cfg.encoder_layers}+{cfg.decoder_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.param_dtype}, remat {cfg.remat}) batch "
+          f"{tuple(frames)} frames, {tuple(tokens)} decoder tokens: {steps} steps, losses "
+          f"{losses}; steps {WHISPER_TRAIN_WARMUP + 1}-{steps} step_ms={np.mean(timed)} "
+          f"(min {min(timed)} max {max(timed)}) frames_per_s="
+          f"{frames[0] * frames[1] * len(timed) / secs} tokens_per_s="
+          f"{tokens[0] * tokens[1] * len(timed) / secs}; first step_ms={step_ms[0]}; "
+          f"max_memory_allocated={peak} of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory}", flush=True)
+
+    def more():
+        nonlocal state
+        for b in batches[steps:]:
+            state, _ = step_fn(state, b)
+
+    n = WHISPER_TRAIN_PROFILED_STEPS
+    _, wall, busy, n_launch, ranges = profile_breakdown(more, tag=f"WHISPER-TRAIN x{n}")
+    opt_s = ranges["train.optimizer"]
+    print(f"WHISPER-TRAIN: a profiled step: wall_ms={wall / n * 1e3} device_busy_ms="
+          f"{busy / n * 1e3} device_idle_share={1 - busy / wall:.4f} launches="
+          f"{n_launch / n}; the optimizer's kernels device_ms={opt_s / n * 1e3} "
+          f"({opt_s / busy:.4f} of the device time)", flush=True)
+    del model, state, step_fn, batches
+    torch.cuda.empty_cache()
+    reduced_train_check("whisper train check", (WHISPER_ARCH,))
+    print(f"phase 9e: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+
+
 # ---------------------------------------------------------------------------
 # phase 10: host-sync census (repro_torch.analysis.sync_census)
 # ---------------------------------------------------------------------------
@@ -2617,8 +3020,10 @@ def host_sync_census(syn1m):
     probe pass at client batch 8, a TINYLLAMA-SERVE decode step,
     launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an OLMOE-SERVE
     and a DEEPSEEK-SERVE decode step, CENSUS_TRAIN_STEPS OLMOE-TRAIN
-    steps, an RWKV6-SERVE and a JAMBA-SERVE decode step, and
-    CENSUS_TRAIN_STEPS RWKV6-TRAIN steps."""
+    steps, an RWKV6-SERVE and a JAMBA-SERVE decode step,
+    CENSUS_TRAIN_STEPS RWKV6-TRAIN steps, a WHISPER-SERVE decode step,
+    INTERNVL-SERVE's patch prefill and CENSUS_TRAIN_STEPS WHISPER-TRAIN
+    steps."""
     from repro_torch.core import hdb
     from repro_torch.data import pipeline
     from repro_torch.streaming import BlockStore, DeltaBlocker
@@ -2690,7 +3095,7 @@ def lm_census(totals):
     """Phase 10's LM runs, each total into ``totals``: a TINYLLAMA-SERVE
     decode step, launch/train.py --dedup for CENSUS_TRAIN_STEPS steps, an
     OLMOE-SERVE and a DEEPSEEK-SERVE decode step, CENSUS_TRAIN_STEPS
-    OLMOE-TRAIN steps, then ``recurrent_census``."""
+    OLMOE-TRAIN steps, then ``recurrent_census`` and ``encdec_census``."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     decode_census(totals, "TINYLLAMA-SERVE", get_config(LM_ARCH))
@@ -2709,6 +3114,7 @@ def lm_census(totals):
                                                                 num_layers=MLA_SERVE_LAYERS))
     train_census(totals, "OLMOE-TRAIN", moe_train_config())
     recurrent_census(totals)
+    encdec_census(totals)
 
 
 def recurrent_census(totals):
@@ -2718,6 +3124,52 @@ def recurrent_census(totals):
     decode_census(totals, "RWKV6-SERVE", get_config(RWKV_ARCH))
     decode_census(totals, "JAMBA-SERVE", jamba_serve_config())
     train_census(totals, "RWKV6-TRAIN", rwkv_train_config())
+
+
+def encdec_census(totals):
+    """Phase 10's encoder-decoder and VLM runs: a WHISPER-SERVE decode step
+    (the tokens up, the argmax down, as the engine's), INTERNVL-SERVE's
+    patch prefill with its first tokens downloaded, and CENSUS_TRAIN_STEPS
+    WHISPER-TRAIN steps, each batch drawn and uploaded in the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import smoke as serve_smoke
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    frames, prompts = encdec_inputs(cfg, WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT,
+                                    "cuda")
+    enc_out = model.encode(frames)
+    caches = model.init_caches(WHISPER_BATCH, WHISPER_MAX_LEN)
+    logits, caches = model.prefill({"frames": frames, "tokens": torch.from_numpy(
+        prompts).cuda()}, caches)
+    tok = serve_smoke.greedy(logits)
+    totals["WHISPER-SERVE"] = census("WHISPER-SERVE decode step", lambda: serve_smoke.greedy_step(
+        model, tok, caches, {"enc_out": enc_out})).total
+    del model, enc_out, caches, logits
+    torch.cuda.empty_cache()
+
+    vlm = vlm_serve_config()
+    model = build_model(vlm, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    patches, tokens = patch_inputs(vlm, WHISPER_BATCH, PATCH_TEXT, "cuda")
+    caches = model.init_caches(WHISPER_BATCH, LM_MAX_LEN)
+    totals["INTERNVL-SERVE"] = census("INTERNVL-SERVE patch prefill", lambda: serve_smoke.greedy(
+        model.prefill({"patches": patches, "tokens": tokens}, caches)[0])).total
+    del model, caches
+    torch.cuda.empty_cache()
+
+    model, state, step_fn = whisper_train_setup(CENSUS_TRAIN_STEPS)
+
+    def steps():
+        nonlocal state
+        for i in range(CENSUS_TRAIN_STEPS):
+            state, _ = step_fn(state, whisper_batch(model.cfg, i))
+
+    totals["WHISPER-TRAIN"] = census(f"WHISPER-TRAIN {CENSUS_TRAIN_STEPS} train steps",
+                                     steps).total
+    del model, state, step_fn
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2766,10 +3218,12 @@ def main() -> int:
     serving_lm()
     serving_moe()
     serving_recurrent()
+    serving_encdec()
     train_launches = training_full_width(kernels)
     training_check()
     training_moe()
     training_recurrent()
+    training_encdec()
     host_sync_census(syn1m)
     del syn1m
     for row in rows:

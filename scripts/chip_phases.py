@@ -6,9 +6,11 @@ Runs the named phases of the ``chip_smoke.py`` in ``CHECKOUT`` (a ``git
 archive`` unpacked somewhere, or the repository itself) against that
 checkout's own ``src/``, with its kernels built first: ``8a`` serving,
 ``8b`` LM serving, ``8c`` MoE and MLA serving, ``8d`` the recurrent
-mixers' serving, ``9a`` training, ``9c`` MoE training, ``9d`` RWKV
+mixers' serving, ``8e`` the encoder-decoder and VLM serving, ``9a``
+training, ``9c`` MoE training, ``9d`` RWKV training, ``9e`` whisper
 training, ``10lm`` phase 10's census of the LM runs, ``10rec`` its
-recurrent runs only; by default 8a, 8b and 9a. ``NAME=INT`` sets one of the script's integer constants
+recurrent runs only, ``10enc`` its encoder-decoder and VLM runs only; by
+default 8a, 8b and 9a. ``NAME=INT`` sets one of the script's integer constants
 first (``MOE_TRAIN_LAYERS=14`` trains 14 layers in 9c). Run it for a parent and a change in turns within one call
 (parent, change, change, parent) to compare their end-to-end figures on
 one card; each run is a process of its own.
@@ -31,10 +33,11 @@ _build.build_all()
 print("subset tree", tree, flush=True)
 kernels = cs.all_kernels()
 phases = {"8a": lambda: cs.serving_service(kernels), "8b": cs.serving_lm,
-          "8c": cs.serving_moe, "8d": cs.serving_recurrent,
+          "8c": cs.serving_moe, "8d": cs.serving_recurrent, "8e": cs.serving_encdec,
           "9a": lambda: cs.training_full_width(kernels), "9c": cs.training_moe,
-          "9d": cs.training_recurrent, "10lm": lambda: cs.lm_census({}),
-          "10rec": lambda: cs.recurrent_census({})}
+          "9d": cs.training_recurrent, "9e": cs.training_encdec,
+          "10lm": lambda: cs.lm_census({}), "10rec": lambda: cs.recurrent_census({}),
+          "10enc": lambda: cs.encdec_census({})}
 args = sys.argv[2:]
 for arg in [a for a in args if "=" in a]:
     name, value = arg.split("=")

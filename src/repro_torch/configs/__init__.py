@@ -5,9 +5,8 @@ assigned spec) and ``reduced()`` (a tiny same-family config for CPU smoke
 tests).
 
 The port's own copy of the JAX package's ``configs``: the same data,
-field for field, over the port's ``ModelConfig``. The port builds the
-dense and MoE families (``models/model.build_model``); the other
-families are listed so that the registry is whole."""
+field for field, over the port's ``ModelConfig``; ``models/model.build_model``
+builds every config of it."""
 from __future__ import annotations
 
 import importlib

@@ -1,7 +1,8 @@
-"""GQA attention: dense and chunked (flash-style) paths, and KV-cache decode.
+"""GQA attention: dense and chunked (flash-style) paths, KV-cache decode,
+and the encoder-decoder's options: no RoPE, no causal mask, and
+cross-attention (keys and values from the encoder output).
 
-Port of the JAX package's ``models/attention.py`` (cross-attention belongs
-to enc-dec, ROADMAP A10b). Conventions: x (B,S,D); q (B,S,H,hd); k/v
+Port of the JAX package's ``models/attention.py``. Conventions: x (B,S,D); q (B,S,H,hd); k/v
 (B,S,KV,hd); G = H/KV query heads per KV head. The math is plain tensor
 ops in the reference's order and dtypes: the score product in the compute
 dtype, then float32 times ``1/sqrt(hd)``, masked with ``NEG_INF``, a
@@ -28,9 +29,10 @@ NEG_INF = -1e30
 
 def _dense_attend(q, k, v, mask, scale):
     """q (B,Sq,H,D), k/v (B,Sk,H,D) (kv pre-repeated to H heads); mask
-    broadcastable to (B,H,Sq,Sk)."""
+    broadcastable to (B,H,Sq,Sk), or None."""
     scores = torch.einsum("bqhd,bshd->bhqs", q, k).to(torch.float32) * scale
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
@@ -44,9 +46,9 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, kv, groups, d).reshape(b, s, kv * groups, d)
 
 
-def _chunked_attend(q, k, v, scale, q_offset: int, chunk: int):
-    """Causal flash-style online-softmax attention over KV chunks per Q
-    chunk; query i sits at position ``q_offset + i``.
+def _chunked_attend(q, k, v, scale, q_offset: int, chunk: int, causal: bool = True):
+    """Flash-style online-softmax attention over KV chunks per Q chunk;
+    causal, query i sits at position ``q_offset + i``.
 
     q (B,Sq,H,D), k/v (B,Sk,H,D) pre-repeated. Never materialises
     (Sq, Sk); the peak score block is (B,H,Cq,Ck).
@@ -71,9 +73,10 @@ def _chunked_attend(q, k, v, scale, q_offset: int, chunk: int):
             k_blk = k[:, ki * ck:(ki + 1) * ck]
             v_blk = v[:, ki * ck:(ki + 1) * ck]
             s = torch.einsum("bhqd,bshd->bhqs", q_blk, k_blk).to(torch.float32) * scale
-            qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
-            kpos = ki * ck + torch.arange(ck, device=dev)
-            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            if causal:
+                qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
+                kpos = ki * ck + torch.arange(ck, device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -100,25 +103,33 @@ class Attention(nn.Module):
         self.wo = dense_param((h, hd, d), cfg.pdtype, device, generator)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                cache: Optional[Dict] = None):
+                cache: Optional[Dict] = None, causal: bool = True,
+                kv_x: Optional[torch.Tensor] = None, use_rope: bool = True):
         """With ``cache``, x is the new-token slice and the cache supplies
-        the history (a decode step). Returns (y, cache or None)."""
+        the history (a decode step). With ``kv_x`` (cross-attention, no
+        cache), keys and values come from ``kv_x``, unrotated, and no mask
+        applies; ``causal=False`` drops the mask of self-attention. Returns
+        (y, cache or None)."""
         cfg = self.cfg
         b, sq, d = x.shape
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         g = h // kvh
         c = cfg.cdtype
+        src = x if kv_x is None else kv_x
+        sk = src.shape[1]
         q = (x @ self.wq.to(c).reshape(d, h * hd)).reshape(b, sq, h, hd)
-        k = (x @ self.wk.to(c).reshape(d, kvh * hd)).reshape(b, sq, kvh, hd)
-        v = (x @ self.wv.to(c).reshape(d, kvh * hd)).reshape(b, sq, kvh, hd)
+        k = (src @ self.wk.to(c).reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
+        v = (src @ self.wv.to(c).reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
         if positions is None:
             # the reference rotates at arange(sq) when no positions are
             # given, and its decode step gives none: every decoded token is
             # rotated as position 0 (a fault of the reference, ROADMAP
             # Queue C; mirrored so the port is held to its outputs)
             positions = torch.arange(sq, device=x.device)[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            if kv_x is None:
+                k = apply_rope(k, positions, cfg.rope_theta)
 
         scale = 1.0 / math.sqrt(hd)
         if cache is not None:
@@ -152,11 +163,15 @@ class Attention(nn.Module):
                            (cfg.attn_impl == "auto" and sq >= cfg.attn_chunk_threshold))
             k_rep = _repeat_kv(k, g)
             v_rep = _repeat_kv(v, g)
-            if use_chunked:
-                out = _chunked_attend(q, k_rep, v_rep, scale, 0, cfg.attn_chunk_size)
+            if use_chunked and kv_x is None:
+                out = _chunked_attend(q, k_rep, v_rep, scale, 0, cfg.attn_chunk_size,
+                                      causal)
             else:
-                ar = torch.arange(sq, device=x.device)
-                mask = ar[:, None] >= ar[None, :]
+                # cross-attention is never chunked and never masked
+                mask = None
+                if causal and kv_x is None:
+                    ar = torch.arange(sq, device=x.device)
+                    mask = ar[:, None] >= ar[None, :]
                 out = _dense_attend(q, k_rep, v_rep, mask, scale)
         y = out.reshape(b, sq, h * hd) @ self.wo.to(c).reshape(h * hd, d)
         return y, cache

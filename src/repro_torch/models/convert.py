@@ -17,7 +17,11 @@ in the reference's tree joined by dots (layer ``i``'s under
 kind; matrices keep the reference's orientation. A Mamba layer's
 parameters sit under ``mamba``, an RWKV layer's under ``rwkv``, as in the
 reference's tree; a scanned ``a_log`` (broadcast over the stack) is
-sliced as any other leaf.
+sliced as any other leaf. The encdec family's ``enc`` and ``dec`` are
+always stacked: encoder layer ``i``'s leaves are ``enc.<i>.<path>``,
+decoder layer ``i``'s ``dec.<i>.<path>`` (its cross-attention under
+``cross``), and its decoder caches are one stacked tree whose ``pos`` has
+shape ``(decoder_layers,)``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,10 @@ from .transformer import layer_specs, split_prefix_unit
 
 def _layer_trees(cfg: ModelConfig, stack: Dict) -> List:
     """The per-layer subtrees of a ``{"prefix", "unit"}`` tree, in layer
-    order; a scanned unit entry is sliced along its leading axis."""
+    order; a scanned unit entry is sliced along its leading axis. For the
+    encdec family, ``stack`` is the decoder's stacked tree."""
+    if cfg.family == "encdec":
+        return [_index(stack, i) for i in range(cfg.decoder_layers)]
     prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
     out = list(stack["prefix"])
     for r in range(n_repeat):
@@ -71,10 +78,17 @@ def params_from_jax(cfg: ModelConfig, tree: Dict) -> Dict[str, torch.Tensor]:
             return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
         return torch.from_numpy(np.array(x))
 
-    top = {k: v for k, v in tree.items() if k != "layers"}
+    stacks = {"layers", "enc", "dec"}
+    top = {k: v for k, v in tree.items() if k not in stacks}
     sd = {name: t(x) for name, x in _leaves(top, "")}
-    for i, layer in enumerate(_layer_trees(cfg, tree["layers"])):
-        sd.update((name, t(x)) for name, x in _leaves(layer, f"stack.layers.{i}"))
+    if cfg.family == "encdec":
+        layers = [(f"{key}.{i}", _index(tree[key], i)) for key, n in (
+            ("enc", cfg.encoder_layers), ("dec", cfg.decoder_layers)) for i in range(n)]
+    else:
+        layers = [(f"stack.layers.{i}", layer)
+                  for i, layer in enumerate(_layer_trees(cfg, tree["layers"]))]
+    for prefix, layer in layers:
+        sd.update((name, t(x)) for name, x in _leaves(layer, prefix))
     return sd
 
 
@@ -123,12 +137,15 @@ def caches_from_jax(cfg: ModelConfig, caches: Dict, device) -> List[Dict]:
 
 def caches_to_numpy(cfg: ModelConfig, caches: List[Dict], scan_layers: bool) -> Dict:
     """The port's caches -> the reference's ``{"prefix", "unit"}`` tree of
-    float32 numpy arrays (scanned: stacked on a leading axis)."""
-    prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
-
+    float32 numpy arrays (scanned: stacked on a leading axis); for the
+    encdec family, the decoder's stacked tree."""
     def one(c):
         return {k: np.int32(v) if k == "pos" else v.float().cpu().numpy()
                 for k, v in c.items()}
+
+    if cfg.family == "encdec":
+        return {k: np.stack([one(c)[k] for c in caches]) for k in caches[0]}
+    prefix, unit, n_repeat = split_prefix_unit(layer_specs(cfg))
 
     out = {"prefix": [one(c) for c in caches[:len(prefix)]], "unit": []}
     for j in range(len(unit)):

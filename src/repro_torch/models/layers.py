@@ -1,7 +1,7 @@
-"""Shared layers: RMS norm, RoPE, embeddings, the SwiGLU MLP.
+"""Shared layers: RMS and layer norms, RoPE, embeddings, the SwiGLU and
+GELU MLPs.
 
-Port of the JAX package's ``models/layers.py`` (the decoder-only part;
-``layer_norm`` and the GELU MLP belong to enc-dec, ROADMAP A10b-4). Weights
+Port of the JAX package's ``models/layers.py``. Weights
 keep the reference's orientation (``x @ w``, ``w`` of shape ``(in, out)``)
 and its init scales, so ``convert.params_from_jax`` copies arrays as they
 are. Each weight is cast to the compute dtype where it is used, as the
@@ -46,6 +46,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.to(torch.float32))).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Float32 layer norm (the population variance, ``jnp.var``'s ddof 0),
+    then ``x * weight + bias``, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight + bias).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -107,3 +119,23 @@ class MLP(nn.Module):
         c = self.cfg.cdtype
         h = nn.functional.silu(x @ self.w_gate.to(c)) * (x @ self.w_up.to(c))
         return h @ self.w_down.to(c)
+
+
+class GeluMLP(nn.Module):
+    """Whisper's MLP: ``gelu(x @ w_up + b_up) @ w_down + b_down``, the
+    tanh-approximate GELU (``jax.nn.gelu``'s default), the biases added
+    in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_up = dense_param((d, f), cfg.pdtype, device, generator)
+        self.w_down = dense_param((f, d), cfg.pdtype, device, generator)
+        self.b_up = zeros_param((f,), cfg.pdtype, device)
+        self.b_down = zeros_param((d,), cfg.pdtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg.cdtype
+        h = nn.functional.gelu(x @ self.w_up.to(c) + self.b_up.to(c), approximate="tanh")
+        return h @ self.w_down.to(c) + self.b_down.to(c)

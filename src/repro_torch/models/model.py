@@ -1,31 +1,34 @@
-"""Model facade: the decoder-only families from their ModelConfig.
+"""Model facade: every family from its ModelConfig.
 
 Port of the JAX package's ``models/model.py`` for the dense family
 (tinyllama-1.1b, internlm2-20b, mistral-nemo-12b, stablelm-3b), the MoE
 family, with MLA and multi-token prediction (olmoe-1b-7b,
 deepseek-v3-671b), the hybrid family (jamba-1.5-large-398b: Mamba layers
-with an attention layer in every ``attn_period``) and the ssm family
-(rwkv6-1.6b: RWKV-6 layers):
+with an attention layer in every ``attn_period``), the ssm family
+(rwkv6-1.6b: RWKV-6 layers), the vlm family (internvl2-76b: the dense
+decoder behind a prefix of patch embeddings) and the encdec family
+(whisper-medium, ``EncDecModel``):
 
     model = build_model(cfg, device="cuda", generator=g)  # seeded weights
     logits, aux = model.apply(batch)                      # forward
     loss, metrics = model.loss(batch)                     # training fwd
     caches = model.init_caches(batch_size, max_len)       # serving
     logits, caches = model.prefill(batch, caches)
-    logits, caches = model.decode_step(token, caches)
+    logits, caches = model.decode_step(token, caches, extras)
 
 The model carries its weights and device (the reference passes a params
 tree to pure functions; ``convert.params_from_jax`` loads one). Batch
-dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors. ``aux``
-holds the stack's summed MoE aux loss and dropped count (zeros for a
-dense stack) and, with ``cfg.mtp``, the multi-token-prediction logits:
-one more layer over ``cat([h_t, embed(target_t)]) @ mtp_proj`` predicts
+dict: ``tokens`` (B,S) and ``targets`` (B,S) integer tensors, and per
+modality ``frames`` (B, S_enc, d_model), the encoder's stub front end,
+or ``patches`` (B, P, d_model), the stub vision tower's. ``aux`` holds
+the stack's summed MoE aux loss and dropped count (zeros for a dense
+stack) and, with ``cfg.mtp``, the multi-token-prediction logits: one
+more layer over ``cat([h_t, embed(target_t)]) @ mtp_proj`` predicts
 token t+2, and ``loss`` adds 0.3 of its cross-entropy.
 ``build_model`` returns the weights frozen (``requires_grad`` off), so
 ``apply`` and ``loss`` build no graph; ``training.train_loop`` turns
 gradients on and differentiates ``loss``. ``prefill`` and
-``decode_step`` (serving) always run without autograd. The enc-dec and
-vlm families raise ``NotImplementedError`` (ROADMAP A10b-4).
+``decode_step`` (serving) always run without autograd.
 The reference's sharding annotations (``lshard``) have no counterpart on
 one card.
 """
@@ -37,11 +40,8 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from . import layers, transformer
+from . import encdec, layers, transformer
 from .config import ModelConfig
-
-# the families build_model builds
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
@@ -71,8 +71,12 @@ class Model(nn.Module):
             self.mtp_proj = layers.dense_param((2 * cfg.d_model, cfg.d_model),
                                                cfg.pdtype, device, generator)
 
-    def _backbone(self, tokens, caches=None, positions=None):
+    def _backbone(self, tokens, extra=None, caches=None, positions=None):
+        """``extra`` (the vlm's patch embeddings) is cast to the compute
+        dtype and put ahead of the token embeddings."""
         x = self.embed(tokens)
+        if extra is not None:
+            x = torch.cat([extra.to(self.cfg.cdtype), x], dim=1)
         x, new_caches, aux, dropped = self.stack(x, positions=positions, caches=caches)
         return (layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), new_caches,
                 aux, dropped)
@@ -89,9 +93,14 @@ class Model(nn.Module):
     def apply(self, batch: Dict) -> tuple:
         """(logits, aux) as the reference's ``apply``: ``moe_aux``,
         ``moe_dropped`` and, with MTP (which reads ``batch["targets"]``),
-        ``mtp_logits``. (This name shadows ``nn.Module.apply(fn)``, which
-        the port does not use.)"""
-        x, _, aux, dropped = self._backbone(batch["tokens"])
+        ``mtp_logits``. With ``batch["patches"]`` the patch rows go
+        through the stack (RoPE positions run over patches and tokens) and
+        are cut before the head. (This name shadows ``nn.Module.apply(fn)``,
+        which the port does not use.)"""
+        extra = batch.get("patches")
+        x, _, aux, dropped = self._backbone(batch["tokens"], extra)
+        if extra is not None:
+            x = x[:, extra.shape[1]:]
         out = {"moe_aux": aux, "moe_dropped": dropped}
         if self.cfg.mtp:
             fused = (torch.cat([x, self.embed(batch["targets"])], dim=-1)
@@ -116,41 +125,88 @@ class Model(nn.Module):
             metrics["mtp_ce"] = mtp_ce
         return total, metrics
 
-    def init_caches(self, batch: int, max_len: int) -> List:
+    def stacked(self, name: str) -> bool:
+        """Whether parameter ``name``'s leaf carries the stack axis in the
+        reference's tree (a layer of a scanned unit)."""
+        parts = name.split(".")
+        return parts[:2] == ["stack", "layers"] and self.stack.stacked(int(parts[2]))
+
+    def init_caches(self, batch: int, max_len: int, device=None) -> List:
         """One zeroed cache a layer (KV for attention, latent for MLA, the
-        recurrent state for Mamba and RWKV), in layer order, on the model's
-        device."""
-        return self.stack.init_caches(batch, max_len, self.device)
+        recurrent state for Mamba and RWKV), in layer order, on ``device``
+        (None: the model's)."""
+        return self.stack.init_caches(batch, max_len,
+                                      self.device if device is None else device)
 
     @torch.no_grad()
     def prefill(self, batch: Dict, caches: List) -> tuple:
-        """The whole prompt through the caches at once; logits of the last
-        position. Positions are rotated from 0, as in the reference. A
-        Mamba layer steps its state by the prompt's first token only
-        (ROADMAP Queue C, LM fault 6), as the reference's does."""
-        x, caches, _, _ = self._backbone(batch["tokens"], caches=caches)
+        """The whole prompt (after ``batch["patches"]``, if given) through
+        the caches at once; logits of the last position. Positions are
+        rotated from 0, as in the reference. A Mamba layer steps its state
+        by the prompt's first token only (ROADMAP Queue C, LM fault 6), as
+        the reference's does."""
+        x, caches, _, _ = self._backbone(batch["tokens"], batch.get("patches"),
+                                         caches=caches)
         return self._head(x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: List, batch=None) -> tuple:
         """(B,1) tokens through the caches (written in place): (logits,
         caches). Like the reference's, it passes no positions, so RoPE
-        rotates the new token's keys at position 0 (ROADMAP Queue C)."""
+        rotates the new token's keys at position 0 (ROADMAP Queue C), and
+        takes no patches."""
         x, caches, _, _ = self._backbone(token, caches=caches, positions=None)
         return self._head(x), caches
 
 
+class EncDecModel(encdec.EncDec):
+    """The encdec family behind the facade (the reference's
+    ``_encdec_model``). ``apply`` encodes ``batch["frames"]`` and decodes
+    ``batch["tokens"]`` teacher-forced; ``loss`` is the cross-entropy
+    alone. ``prefill`` encodes the frames and runs one decode step on the
+    prompt's last token only, so the earlier prompt tokens never reach
+    the caches (ROADMAP Queue C, LM fault 7); it does not return the
+    encoder output, which ``decode_step`` reads from
+    ``batch["enc_out"]`` (``encode`` computes it). The ``ServingEngine``
+    passes no batch, so it cannot serve this family (LM fault 8)."""
+
+    def stacked(self, name: str) -> bool:
+        """Every encoder and decoder leaf: the reference stacks both
+        whatever ``scan_layers`` says."""
+        return name.split(".")[0] in ("enc", "dec")
+
+    def apply(self, batch: Dict) -> tuple:
+        logits = self.decode_train(batch["tokens"], self.encode(batch["frames"]))
+        return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=self.device),
+                        "moe_dropped": torch.zeros((), dtype=torch.int32,
+                                                   device=self.device)}
+
+    def loss(self, batch: Dict) -> tuple:
+        """(ce, {"ce": ce}): no z-loss and no aux term."""
+        ce, _ = cross_entropy(self.apply(batch)[0], batch["targets"])
+        return ce, {"ce": ce}
+
+    def init_caches(self, batch: int, max_len: int, device=None) -> List:
+        return self.init_dec_caches(batch, max_len, device)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict, caches: List) -> tuple:
+        return self.decode(batch["tokens"][:, -1:], self.encode(batch["frames"]), caches)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches: List, batch=None) -> tuple:
+        return self.decode(token, batch["enc_out"], caches)
+
+
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> Model:
-    """The decoder of ``cfg`` (dense, MoE, hybrid or ssm; with attention,
-    MLA, Mamba or RWKV mixers; with or without MTP) with seeded random weights on ``device`` (None means the
-    card; ``"meta"`` allocates nothing), frozen. ``generator`` must live
-    on that device; None seeds one with 0."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port builds "
-            f"{FAMILIES} (ROADMAP A10b-4)")
+                generator: Optional[torch.Generator] = None):
+    """The model of ``cfg`` (a ``Model``: dense, MoE, hybrid, ssm or vlm,
+    with attention, MLA, Mamba or RWKV mixers, with or without MTP; an
+    ``EncDecModel`` for encdec) with seeded random weights on ``device``
+    (None means the card; ``"meta"`` allocates nothing), frozen.
+    ``generator`` must live on that device; None seeds one with 0."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    return Model(cfg, dev, generator).eval().requires_grad_(False)
+    cls = EncDecModel if cfg.family == "encdec" else Model
+    return cls(cfg, dev, generator).eval().requires_grad_(False)

@@ -1,12 +1,12 @@
 """Decoder-only layer stack.
 
 Port of the JAX package's ``models/transformer.py`` for the dense, MoE,
-hybrid and ssm families. ``layer_specs`` and ``split_prefix_unit`` are
-the reference's (the decomposition is what ``convert`` needs to read its
-parameter and cache trees). The port builds the layer kinds
-``(mixer, ffn)`` of ``SUPPORTED``: mixer ``"attn"``
+hybrid, ssm and vlm families. ``layer_specs`` and ``split_prefix_unit``
+are the reference's (the decomposition is what ``convert`` needs to read
+its parameter and cache trees). The port builds every layer kind
+``(mixer, ffn)`` the reference builds: mixer ``"attn"``
 (``attention.Attention``), ``"mla"`` (``mla.MLA``), ``"mamba"``
-(``mamba.Mamba``) or ``"rwkv"`` (``rwkv.RWKV``), and ffn ``"mlp"``
+(``mamba.Mamba``) or ``"rwkv"`` (``rwkv.RWKV``), with ffn ``"mlp"``
 (``layers.MLP``) or ``"moe"`` (``moe.MoE``). A layer holds its mixer
 under the reference's key: ``attn`` for attention and MLA, ``mamba``,
 ``rwkv``.
@@ -35,8 +35,6 @@ from . import attention, layers, mamba, mla, moe, rwkv
 from .config import ModelConfig
 
 LayerSpec = Tuple[str, str]  # (mixer_kind, ffn_kind)
-SUPPORTED = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"),
-             ("mamba", "mlp"), ("mamba", "moe"), ("rwkv", "mlp"))
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -131,11 +129,6 @@ class Stack(nn.Module):
     def __init__(self, cfg: ModelConfig, device, generator):
         super().__init__()
         specs = layer_specs(cfg)
-        unsupported = sorted(set(specs) - set(SUPPORTED))
-        if unsupported:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kinds {unsupported} are not ported (no config "
-                f"of the registry has them); the port builds {sorted(SUPPORTED)} layers")
         self.cfg = cfg
         self.specs = specs
         self.prefix, self.unit, self.n_repeat = split_prefix_unit(specs)

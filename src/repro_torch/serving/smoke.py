@@ -5,8 +5,9 @@ holding one device's results against another's.
 stepping clock (ingests, ``refresh_clusters``, probes in both modes, a
 shed probe) and returns what it answered; ``engine_run(model, requests)``
 serves requests through a ``ServingEngine`` and returns the tokens and
-the first decode step's logits; ``differing(a, b)`` names the results in
-which two runs differ. ``step_clock`` is the deterministic clock the
+the first decode step's logits; ``greedy_step`` takes one decode step as
+the engine takes it, for the encdec family, which the engine cannot
+serve; ``differing(a, b)`` names the results in which two runs differ. ``step_clock`` is the deterministic clock the
 tests share with the reference service.
 """
 from __future__ import annotations
@@ -89,6 +90,23 @@ def engine_run(model, requests, slots: int, max_len: int) -> Dict:
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, eos_id=-1))
     tokens = {r.uid: r.tokens for r in eng.run()}
     return {"tokens": tokens, "pos": eng.pos, "first_logits": logits.float().cpu()}  # repro: noqa[R001] a check helper's host copy
+
+
+def greedy(logits: torch.Tensor) -> np.ndarray:
+    """The last position's argmax (the first index on ties, as the
+    engine's), on the host: (B, 1) int32."""
+    return logits[:, -1].argmax(-1, keepdim=True).to(torch.int32).cpu().numpy()  # repro: noqa[R001] sampled tokens to the host scheduler
+
+
+def greedy_step(model, tokens: np.ndarray, caches: List, batch=None):
+    """One greedy decode step as the ``ServingEngine`` takes one: the host
+    tokens (B, 1) uploaded, ``decode_step`` with ``batch`` (the encdec
+    family reads ``batch["enc_out"]``, which the engine does not pass:
+    ROADMAP Queue C, LM fault 8), the argmax downloaded. Returns (the next
+    tokens, the logits, the caches)."""
+    tok = torch.from_numpy(tokens).to(model.device)  # repro: noqa[R001] the host tokens, uploaded
+    logits, caches = model.decode_step(tok, caches, batch)
+    return greedy(logits), logits, caches
 
 
 def lm_requests(vocab: int, n: int, max_new: int, lo: int = 2, hi: int = 33,

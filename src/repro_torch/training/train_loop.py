@@ -53,19 +53,14 @@ def init_train_state(model, tcfg: TrainConfig) -> Dict[str, Any]:
 
 def decayed_names(model) -> Set[str]:
     """The parameters AdamW decays: those of two or more dims in the
-    reference's tree, where each leaf of a scanned unit carries one more
-    (the stack axis). So with ``scan_layers`` a unit layer's vectors (its
-    norms, RWKV's ``decay_base``, ``bonus`` and ``ln_x``, Mamba's
-    ``dt_bias`` and ``d_skip``) are decayed, and unscanned they are not
-    (ROADMAP Queue C, training fault 4)."""
-    out = set()
-    for k, p in model.named_parameters():
-        parts = k.split(".")
-        stacked = (parts[:2] == ["stack", "layers"]
-                   and model.stack.stacked(int(parts[2])))
-        if p.ndim + stacked >= 2:
-            out.add(k)
-    return out
+    reference's tree, where each stacked leaf carries one more (the stack
+    axis, ``model.stacked``). So with ``scan_layers`` a unit layer's
+    vectors (its norms, RWKV's ``decay_base``, ``bonus`` and ``ln_x``,
+    Mamba's ``dt_bias`` and ``d_skip``) are decayed, and unscanned they
+    are not; every encoder and decoder layer's norms and MLP biases are
+    decayed, the final norms of the encdec family not (ROADMAP Queue C,
+    training fault 4)."""
+    return {k for k, p in model.named_parameters() if p.ndim + model.stacked(k) >= 2}
 
 
 def make_train_step(model, tcfg: TrainConfig):

@@ -377,9 +377,13 @@ def test_train_batch_matches_reference():
             np.testing.assert_array_equal(_np(tb[k]), np.asarray(jb[k]))
     meta = specs.train_batch(reduced_config(ARCH), 24, 3)
     assert meta["tokens"].device.type == "meta" and meta["tokens"].shape == (3, 24)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        specs.train_batch(reduced_config("whisper-medium"), 24, 3, concrete=True,
-                          device="cpu")
+    jb = jspecs.train_batch(jreduced_config("whisper-medium"), 24, 3, concrete=True,
+                            rng=np.random.default_rng(11))
+    tb = specs.train_batch(reduced_config("whisper-medium"), 24, 3, concrete=True,
+                           rng=np.random.default_rng(11), device="cpu")
+    assert set(tb) == set(jb) == {"frames", "tokens", "targets"}
+    for k in jb:
+        np.testing.assert_array_equal(_np(tb[k]), np.asarray(jb[k]))
 
 
 @pytest.mark.parametrize("deduped", [False, True])
