@@ -141,7 +141,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       {"enc_out"} (the engine cannot serve this family), encode, prefill
       and step ms from CUDA events, ten decode steps profiled, one
       full-size Model.loss; INTERNVL-SERVE (internvl2-76b at its
-      published widths cut to 40 of 80 layers) as 8c's cells, then a
+      published widths cut to 24 of 80 layers) as 8c's cells, then a
       patch prefill of 8 x (256 patches + 16 tokens) and 32 decode
       steps, timed; then cuda == cpu in float32 (TF32 off) at the reduced
       configs: whisper's encode, prefill and 8 decode steps (logits
@@ -183,6 +183,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       steps 3-6 timed with CUDA events, frames and tokens a second, every
       loss finite, peak memory; one more step profiled; then the reduced
       config cuda == cpu as 9c holds its families;
+   f. MESH-OLMOE-TRAIN: olmoe-1b-7b's widths at 4 of 16 layers on four
+      gloo ranks spawned on the card, a (2, 2) ("data", "model") mesh
+      under production_rules, through launch/train.main(argv, mesh=...)
+      with --dedup (every dedup launch held against its plain version on
+      each rank): 3 steps, steps 2-3 timed (the slowest rank), tokens a
+      second, peak memory a rank, every rank's losses finite; one more
+      step, profiled on rank 0 and under the sync census on the others;
+      then one batch at capacity factor 8 in float32 by the psum and the
+      a2a dispatch and a one-rank meshless model of the same weights: each
+      rank's logits within MESH_LOGITS_RTOL of each other, the
+      cross-entropies within MESH_CE_RTOL, nothing dropped, and two
+      planted faults outside the logits' bound;
 10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
     run of each path under torch's sync debug mode, none of them timed:
     SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
@@ -204,7 +216,8 @@ The line before the last is a JSON object with one entry per kernel
 timed runs, ``mesh_gloo_launches`` from rank 0 of phase 7c,
 ``serving_probe_launches`` summed over phase 8a's three timed passes and
 ``serving_ingest_launches`` from its write-lane build,
-``train_dedup_launches`` from phase 9a's first run); the last line is
+``train_dedup_launches`` from phase 9a's first run,
+``mesh_train_launches`` from rank 0 of phase 9f); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero.
 """
@@ -267,10 +280,11 @@ STREAM_DELTA = 1_000
 # SYN_STREAM_DELTAS deltas of 1% each through DedupPipeline.extend. Cut
 # from SYN1M's 400,000 entities: at 200,000 one 1% delta took 54 s of host
 # time on an H100, at 100,000 about 21 s (PERF.md section 4), and 50,000
-# since phases 8e and 9e came; and from ten deltas to one: each costs
-# about 20 s at 100,000, twice with its checked replay; four kept the
-# script too near its time limit once phases 8d and 9d came
-SYN_STREAM_ENTITIES = 50_000
+# since phases 8e and 9e came, 25,000 since phase 9f came; and from ten
+# deltas to one: each costs about 20 s at 100,000, twice with its checked
+# replay; four kept the script too near its time limit once phases 8d and
+# 9d came
+SYN_STREAM_ENTITIES = 25_000
 SYN_STREAM_DELTAS = 1
 # lanes of the tri-decode check at block sizes the SYN1M path does not reach
 TRI_EXTREME_SLOTS = 1 << 20
@@ -2309,13 +2323,14 @@ WHISPER_PROMPT = 4
 WHISPER_MAX_LEN = 448
 WHISPER_NEW = 32
 # INTERNVL-SERVE: internvl2-76b at its published widths cut to
-# VLM_SERVE_LAYERS of 80 layers (36.3e9 parameters, 72.7 GB in bfloat16;
-# all 80 are 141 GB and wait for the mesh), phase 8b's engine traffic
+# VLM_SERVE_LAYERS of 80 layers (24 since phase 9f came, for the script's
+# time; 40 were 36.3e9 parameters, 72.7 GB in bfloat16; all 80 are 141 GB
+# and wait for the mesh's serving path, ROADMAP A10b-6), phase 8b's engine traffic
 # (text only: the engine feeds no patches), then a patch prefill of
 # WHISPER_BATCH rows of 256 patch embeddings and PATCH_TEXT tokens into
 # the caches and WHISPER_NEW decode steps
 VLM_ARCH = "internvl2-76b"
-VLM_SERVE_LAYERS = 40
+VLM_SERVE_LAYERS = 24
 PATCH_TEXT = 16
 # the cuda == cpu checks at the reduced configs (float32, TF32 off):
 # whisper on CHECK_FRAMES frames with CHECK_NEW decode steps, internvl's
@@ -2982,6 +2997,274 @@ def training_encdec():
     print(f"phase 9e: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
 
 
+# the mesh train cell MESH-OLMOE-TRAIN (phase 9f): olmoe-1b-7b's published
+# widths (d_model 2048, 16 heads of 128, 64 experts of d_ff 1024 top-8,
+# vocab 50304, bfloat16, remat full) cut to MESH_TRAIN_LAYERS of 16 layers,
+# trained by the launcher's mesh function (launch/train.main(argv,
+# mesh=...), --dedup) on MESH_RANKS gloo ranks of the one card, a
+# MESH_TRAIN_SHAPE ("data", "model") DeviceMesh under production_rules
+# (FSDP over "data"; heads, experts and vocab over "model"), the
+# launcher's batch (8 x 256), MESH_TRAIN_STEPS steps at the published
+# capacity factor, step 2 on timed; then one more step, profiled on rank 0
+# and under the sync census on the others;
+# then one batch at capacity factor MESH_CHECK_CF, where nothing drops,
+# from the initial weights in float32 (TF32 off): in bfloat16 the
+# products' rounding in other orders flips the top-8 choice of near-tied
+# tokens, and the dispatches' logits part by 0.29-0.43 of their norm, as
+# far as a planted fault moves them (PR 24's first reading, PERF.md
+# section 4). Each rank's rows of the logits by the psum
+# and the a2a dispatch, and, on the ranks of the first "model" coordinate,
+# by a one-rank meshless model of the same weights, within
+# MESH_LOGITS_RTOL of each other (relative Frobenius norm) and the median
+# token's logits within MESH_TOKEN_RTOL; the
+# cross-entropies within MESH_CE_RTOL; both dispatches' dropped == 0. Two
+# planted faults on the meshless model, its experts shifted by one (an
+# expert offset off by one) and the other EP rank's experts zeroed (the
+# EP reduce skipped), must each land outside both logits bounds of the
+# psum logits: the check is shown to see them. The bounds were set from PR 24's
+# float32 readings on the card (PERF.md section 4)
+MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_CHECK_CF = 8.0
+MESH_LOGITS_RTOL = 3e-2
+MESH_TOKEN_RTOL = 5e-3
+MESH_CE_RTOL = 1e-4
+
+
+def mesh_train_config(**changes):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_TRAIN_LAYERS,
+                               **changes)
+
+
+def mesh_train_rank(rank, world, init, tmp):
+    """One of phase 9f's ranks: the training run (every dedup launch held
+    against its plain version), the census of one more step, the
+    capacity-factor check; its results pickled to ``tmp``."""
+    import contextlib
+    import io
+    import pickle
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed.sharding import production_rules, use_rules
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import make_train_step
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(MESH_TRAIN_SHAPE),
+                          mesh_dim_names=("data", "model"))
+        rules = production_rules(mesh)
+        cfg = mesh_train_config()
+        argv = ["--arch", MOE_ARCH, "--steps", str(MESH_TRAIN_STEPS), "--dedup",
+                "--ckpt-every", str(MESH_TRAIN_STEPS + 1),
+                "--ckpt-dir", os.path.join(tmp, "ckpt")]
+        kernels = all_kernels()
+        runs = []
+        get_config = train.get_config
+        train.get_config = lambda arch: cfg
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            for k in kernels:
+                k.launches = 0
+            out["checked"] = check_launches(
+                lambda: runs.append(train.main(argv, mesh=mesh)), kernels)
+            out["launches"] = {k.name: k.launches for k in kernels}
+        finally:
+            train.get_config = get_config
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0  # repro: noqa[R004] synchronized on the line above
+        out["peak"] = torch.cuda.max_memory_allocated()
+        run = runs.pop()
+        out.update(metrics=run.metrics, step_ms=run.step_ms,
+                   tokens=run.loader.cfg.batch_size * run.loader.cfg.seq_len,
+                   local_params=sum(p.numel() for p in run.model.parameters()))
+        step_fn = make_train_step(run.model, run.tcfg)
+
+        def one_step():
+            x, y = run.loader.batch(MESH_TRAIN_STEPS)
+            with use_rules(rules):
+                step_fn(run.state, {"tokens": x, "targets": y})
+
+        # one step: profiled on rank 0, under the census on the others
+        if rank == 0:
+            out["profile"] = profile_breakdown(one_step, tag="MESH-OLMOE-TRAIN rank 0 x1")[1:4]
+        else:
+            quiet = contextlib.nullcontext() if rank == 1 else contextlib.redirect_stdout(
+                io.StringIO())
+            with quiet:
+                out["census"] = census(f"MESH-OLMOE-TRAIN rank {rank} one step",
+                                       one_step).total
+        batch = dict(zip(("tokens", "targets"), run.loader.batch(0)))
+        del run, step_fn
+        torch.cuda.empty_cache()
+        out["check"] = mesh_check(batch, mesh, rules)
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_check(batch, mesh, rules):
+    """Phase 9f's check on this rank (the comment above MESH_TRAIN_LAYERS):
+    {name: (ce, moe_aux, dropped)} of the psum, the a2a and, on the first
+    "model" coordinate, the meshless run and the two planted faults, and
+    the relative distances of this rank's rows of their logits."""
+    from repro_torch.core.routing import linear_shard_index
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models.model import build_model, cross_entropy, shard_model
+    from repro_torch.models.moe import MoE
+
+    def run(model):
+        with torch.no_grad():
+            logits, aux = model.apply(batch)
+            ce = spmd.batch_mean(cross_entropy(logits, spmd.batch_rows(batch["targets"]))[0])
+        return logits.float(), (float(ce), float(aux["moe_aux"]), int(aux["moe_dropped"]))
+
+    def dist_(a, b):
+        """(the relative distance of the whole, the median token's, the
+        share of tokens farther than MESH_TOKEN_RTOL)."""
+        tok = (torch.linalg.vector_norm(a - b, dim=-1)
+               / torch.linalg.vector_norm(b, dim=-1)).flatten()
+        return (float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)),
+                float(tok.median()), float((tok > MESH_TOKEN_RTOL).float().mean()))
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # a spawned rank's own setting
+    f32 = dict(capacity_factor=MESH_CHECK_CF, param_dtype="float32",
+               compute_dtype="float32")
+    logits, out = {}, {}
+    model = build_model(mesh_train_config(**f32), device="cuda")
+    shard_model(model, rules)
+    for impl in ("psum", "a2a"):
+        for m in model.modules():  # MoE reads its dispatch at each call
+            if isinstance(m, MoE):
+                m.cfg = dataclasses.replace(m.cfg, moe_impl=impl)
+        with use_rules(rules):
+            logits[impl], out[impl] = run(model)
+    del model
+    torch.cuda.empty_cache()
+    dists = {"psum~a2a": dist_(logits["a2a"], logits["psum"])}
+    if linear_shard_index(mesh, ("model",)) == 0:
+        n = batch["tokens"].shape[0] // mesh.size(0)
+        first = linear_shard_index(mesh, ("data",)) * n
+        rows = slice(first, first + n)
+        model = build_model(mesh_train_config(**f32), device="cuda")
+        logits["meshless"], out["meshless"] = run(model)
+        logits["meshless"] = logits["meshless"][rows]
+        dists["psum~meshless"] = dist_(logits["psum"], logits["meshless"])
+        dists["a2a~meshless"] = dist_(logits["a2a"], logits["meshless"])
+        experts = [m for m in model.modules() if isinstance(m, MoE)]
+        with torch.no_grad():
+            # a reading, not a check: the meshless logits' move when half
+            # the embedding's entries move by one ulp (rounding-sized)
+            table = model.embed.table
+            kept = table.clone()
+            gen = torch.Generator(device=table.device).manual_seed(0)
+            flip = torch.rand(table.shape, generator=gen, device=table.device) < 0.5
+            table.copy_(torch.where(flip, torch.nextafter(table, torch.full_like(
+                table, float("inf"))), table))
+            probe, _ = run(model)
+            dists["probe:meshless~1ulp"] = dist_(probe[rows], logits["meshless"])
+            table.copy_(kept)
+            del kept, flip, probe
+            for m in experts:  # an expert offset off by one
+                for w in (m.w_gate, m.w_up, m.w_down):
+                    w.copy_(torch.roll(w, 1, 0))
+            fault, out["fault:offset+1"] = run(model)
+            dists["psum~fault:offset+1"] = dist_(logits["psum"], fault[rows])
+            for m in experts:  # undone; the other EP rank's experts left out
+                for w in (m.w_gate, m.w_up, m.w_down):
+                    w.copy_(torch.roll(w, -1, 0))
+                m.w_down[m.w_down.shape[0] // mesh.size(1):] = 0
+            fault, out["fault:no EP reduce"] = run(model)
+            dists["psum~fault:no EP reduce"] = dist_(logits["psum"], fault[rows])
+        del model, fault
+    del logits
+    torch.cuda.empty_cache()
+    return {"runs": out, "dists": dists}
+
+
+def training_mesh():
+    """Phase 9f: MESH-OLMOE-TRAIN on MESH_RANKS gloo ranks of the card.
+    Returns rank 0's dedup launches (each rank launches as many)."""
+    import pickle
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(mesh_train_rank, args=(MESH_RANKS, f"file://{tmp}/init", tmp),
+                           nprocs=MESH_RANKS, start_method="spawn")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    cfg = mesh_train_config()
+    first = ranks[0]
+    for r, got in enumerate(ranks):
+        if got["checked"] != got["launches"] or not all(got["launches"].values()):
+            raise AssertionError(f"MESH-OLMOE-TRAIN rank {r}: checked launches "
+                                 f"{got['checked']}, counted {got['launches']}")
+        losses = [m["loss"] for m in got["metrics"]]
+        if not (len(losses) == MESH_TRAIN_STEPS and np.isfinite(losses).all()):
+            raise AssertionError(f"MESH-OLMOE-TRAIN rank {r}: losses {losses}")
+    losses = [m["loss"] for m in first["metrics"]]
+    timed = [max(g["step_ms"][i] for g in ranks) for i in range(1, MESH_TRAIN_STEPS)]
+    print(f"MESH-OLMOE-TRAIN: {cfg.name} at {cfg.num_layers} of 16 layers (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, {cfg.moe_num_experts} "
+          f"experts of d_ff {cfg.moe_d_ff} top-{cfg.moe_top_k}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}, remat {cfg.remat}, capacity_factor {cfg.capacity_factor}, "
+          f"moe_impl {cfg.moe_impl}) on {MESH_RANKS} gloo ranks of the card, mesh "
+          f"{dict(zip(('data', 'model'), MESH_TRAIN_SHAPE))} under production_rules; "
+          f"batch 8 x 256 from the deduplicated loader: {MESH_TRAIN_STEPS} steps, "
+          f"losses {losses} (each rank: {[[m['loss'] for m in g['metrics']] for g in ranks]}); "
+          f"moe_aux {[m['moe_aux'] for m in first['metrics']]}; moe_dropped "
+          f"{[int(m['moe_dropped']) for m in first['metrics']]}; grad_norm "
+          f"{[m['grad_norm'] for m in first['metrics']]}", flush=True)
+    print(f"MESH-OLMOE-TRAIN: steps 2-{MESH_TRAIN_STEPS} step_ms={np.mean(timed)} (the "
+          f"slowest rank's; min {min(timed)} max {max(timed)}) tokens_per_s="
+          f"{first['tokens'] * len(timed) / (sum(timed) / 1e3)}; first step_ms="
+          f"{[g['step_ms'][0] for g in ranks]}; each rank's max_memory_allocated="
+          f"{[g['peak'] for g in ranks]} of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory}; parameters held a rank "
+          f"{[g['local_params'] for g in ranks]}; launcher run_s="
+          f"{[round(g['run_s'], 1) for g in ranks]}; census syncs in one step on "
+          f"ranks 1-{MESH_RANKS - 1} {[g['census'] for g in ranks[1:]]}", flush=True)
+    wall, busy, n_launch = first["profile"]
+    print(f"MESH-OLMOE-TRAIN: a profiled step on rank 0: wall_ms={wall * 1e3} "
+          f"device_busy_ms={busy * 1e3} device_idle_share={1 - busy / wall:.4f} "
+          f"launches={n_launch}", flush=True)
+    print(f"MESH-OLMOE-TRAIN: dedup launches by rank (each held against its plain "
+          f"version) {[g['launches'] for g in ranks]}", flush=True)
+    runs = [g["check"]["runs"] for g in ranks]
+    dists = [g["check"]["dists"] for g in ranks]
+    print(f"mesh train check: one batch at capacity_factor {MESH_CHECK_CF}, (ce, "
+          f"moe_aux, dropped) by rank {runs}; logits' relative distances by rank "
+          f"{dists} (bound {MESH_LOGITS_RTOL})", flush=True)
+    ces = [r[k][0] for r in runs for k in ("psum", "a2a", "meshless") if k in r]
+    ce_spread = (max(ces) - min(ces)) / min(ces)
+    within = [v for d in dists for k, v in d.items() if ":" not in k]
+    faults = [v for d in dists for k, v in d.items() if k.startswith("psum~fault")]
+    print(f"mesh train check: ce spread {ce_spread} (bound {MESH_CE_RTOL}); largest "
+          f"logits distance {max(v[0] for v in within)} (bound {MESH_LOGITS_RTOL}), "
+          f"median token's {max(v[1] for v in within)} (bound {MESH_TOKEN_RTOL}); the "
+          f"planted faults' least {min(v[0] for v in faults)} and "
+          f"{min(v[1] for v in faults)}", flush=True)
+    if (max(v[0] for v in within) > MESH_LOGITS_RTOL
+            or max(v[1] for v in within) > MESH_TOKEN_RTOL or ce_spread > MESH_CE_RTOL
+            or any(r[k][2] != 0 for r in runs for k in ("psum", "a2a", "meshless")
+                   if k in r)):
+        raise AssertionError(f"mesh train check: {runs} {dists}")
+    if len(faults) != 4 or any(v[0] <= MESH_LOGITS_RTOL or v[1] <= MESH_TOKEN_RTOL
+                               for v in faults):
+        raise AssertionError(f"mesh train check: a planted fault within the bound: {dists}")
+    print(f"phase 9f: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+    return first["launches"]
+
+
 # ---------------------------------------------------------------------------
 # phase 10: host-sync census (repro_torch.analysis.sync_census)
 # ---------------------------------------------------------------------------
@@ -3224,6 +3507,7 @@ def main() -> int:
     training_moe()
     training_recurrent()
     training_encdec()
+    mesh_train_launches = training_mesh()
     host_sync_census(syn1m)
     del syn1m
     for row in rows:
@@ -3237,6 +3521,7 @@ def main() -> int:
         row["serving_probe_launches"] = serve_probe_launches[row["name"]]
         row["serving_ingest_launches"] = serve_ingest_launches[row["name"]]
         row["train_dedup_launches"] = train_launches[row["name"]]
+        row["mesh_train_launches"] = mesh_train_launches[row["name"]]
         row["card"] = card
         print(f"kernel {row['name']}: ms={row['ms']:.4f} plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "

@@ -12,6 +12,13 @@ A cache is ``{"k": (B,S,KV,hd), "v": (B,S,KV,hd), "pos": int}``, ``pos``
 the number of history tokens written; a decode step writes its rows and
 advances ``pos`` in place (the reference returns a new cache instead) and
 returns the same cache.
+
+Under sharding rules each rank attends with its block of the heads (the
+"model" dim), through ``distributed.spmd``: ``wq`` and ``wo`` hold its
+query heads, ``wk``/``wv`` its KV heads or, where they do not divide
+over the dim, all of them (the GQA repeat then keeps this rank's heads),
+and the output projection's parts are summed over the dim. Caches are
+not sharded (serving on the mesh is the dry run's, ROADMAP A10b-6).
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..distributed import spmd
+from ..distributed.sharding import active_rules
 from .config import ModelConfig
 from .layers import apply_rope, dense_param
 
@@ -112,14 +121,24 @@ class Attention(nn.Module):
         (y, cache or None)."""
         cfg = self.cfg
         b, sq, d = x.shape
-        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        g = h // kvh
         c = cfg.cdtype
-        src = x if kv_x is None else kv_x
+        # this rank's query heads, and whether its KV heads are a block too
+        tp, kv_tp = spmd.tp_axes(self.wq, 1), spmd.tp_axes(self.wk, 1)
+        mesh = active_rules().mesh if tp else None
+        if tp and cache is not None:
+            raise NotImplementedError("cached attention on the mesh (serving) "
+                                      "waits for ROADMAP A10b-6")
+        wq, wo = spmd.weight(self.wq).to(c), spmd.weight(self.wo).to(c)
+        wk = spmd.weight(self.wk, split=bool(tp)).to(c)
+        wv = spmd.weight(self.wv, split=bool(tp)).to(c)
+        h, kvh, hd = wq.shape[1], wk.shape[1], cfg.head_dim
+        g = cfg.num_heads // cfg.num_kv_heads
+        x = spmd.enter(x, mesh, tp)
+        src = x if kv_x is None else spmd.enter(kv_x, mesh, tp)
         sk = src.shape[1]
-        q = (x @ self.wq.to(c).reshape(d, h * hd)).reshape(b, sq, h, hd)
-        k = (src @ self.wk.to(c).reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
-        v = (src @ self.wv.to(c).reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
+        q = (x @ wq.reshape(d, h * hd)).reshape(b, sq, h, hd)
+        k = (src @ wk.reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
+        v = (src @ wv.reshape(d, kvh * hd)).reshape(b, sk, kvh, hd)
         if positions is None:
             # the reference rotates at arange(sq) when no positions are
             # given, and its decode step gives none: every decoded token is
@@ -163,6 +182,10 @@ class Attention(nn.Module):
                            (cfg.attn_impl == "auto" and sq >= cfg.attn_chunk_threshold))
             k_rep = _repeat_kv(k, g)
             v_rep = _repeat_kv(v, g)
+            if tp and not kv_tp:
+                # every KV head here, this rank's query heads: keep their
+                # repeats
+                k_rep, v_rep = (spmd.block(t, 2, mesh, tp) for t in (k_rep, v_rep))
             if use_chunked and kv_x is None:
                 out = _chunked_attend(q, k_rep, v_rep, scale, 0, cfg.attn_chunk_size,
                                       causal)
@@ -173,8 +196,8 @@ class Attention(nn.Module):
                     ar = torch.arange(sq, device=x.device)
                     mask = ar[:, None] >= ar[None, :]
                 out = _dense_attend(q, k_rep, v_rep, mask, scale)
-        y = out.reshape(b, sq, h * hd) @ self.wo.to(c).reshape(h * hd, d)
-        return y, cache
+        y = out.reshape(b, sq, h * hd) @ wo.reshape(h * hd, d)
+        return spmd.reduce(y, mesh, tp), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -> Dict:

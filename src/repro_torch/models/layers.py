@@ -6,6 +6,14 @@ keep the reference's orientation (``x @ w``, ``w`` of shape ``(in, out)``)
 and its init scales, so ``convert.params_from_jax`` copies arrays as they
 are. Each weight is cast to the compute dtype where it is used, as the
 reference casts it.
+
+Under sharding rules (``distributed.sharding.use_rules``, the parameters
+sharded by ``shard_params``) each layer works on this rank's rows and
+its block of each weight, through ``distributed.spmd`` (the reference's
+``lshard`` sites): the embedding looks up its vocab rows and sums over
+the "model" dim (tokens outside them give zeros), the head gives this
+rank's vocab columns and gathers them, an MLP takes its ffn columns and
+sums its down projection over the dim.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core.routing import linear_shard_index
+from ..distributed import spmd
+from ..distributed.sharding import active_rules
 from .config import ModelConfig
 
 
@@ -88,7 +99,15 @@ class Embedding(nn.Module):
         # the reference's gather; F.embedding's CPU backward sums each row
         # in order, where indexing's accumulates with atomics and so is not
         # reproducible
-        return nn.functional.embedding(tokens, self.table.to(self.cfg.cdtype))
+        table = spmd.weight(self.table).to(self.cfg.cdtype)
+        tp = spmd.tp_axes(self.table, 0)
+        if not tp:
+            return nn.functional.embedding(tokens, table)
+        mesh = active_rules().mesh
+        lo = linear_shard_index(mesh, tp) * table.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+        rows = nn.functional.embedding(torch.where(mine, tokens - lo, 0), table)
+        return spmd.reduce(torch.where(mine[..., None], rows, 0), mesh, tp)
 
 
 class LMHead(nn.Module):
@@ -101,7 +120,19 @@ class LMHead(nn.Module):
                              generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w.to(self.cfg.cdtype)
+        return vocab_logits(x, self.w, 1, self.cfg)
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, vocab_dim: int,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """``x @ w`` (``w`` (d, V), or the tied table (V, d) with
+    ``vocab_dim`` 0, transposed) in the compute dtype; under rules each
+    rank's vocab columns, gathered over the "model" dim."""
+    tp = spmd.tp_axes(w, vocab_dim)
+    mesh = active_rules().mesh if tp else None
+    w = spmd.weight(w).to(cfg.cdtype)
+    logits = spmd.enter(x, mesh, tp) @ (w.T if vocab_dim == 0 else w)
+    return spmd.gather(logits, -1, mesh, tp)
 
 
 class MLP(nn.Module):
@@ -117,8 +148,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg.cdtype
-        h = nn.functional.silu(x @ self.w_gate.to(c)) * (x @ self.w_up.to(c))
-        return h @ self.w_down.to(c)
+        tp = spmd.tp_axes(self.w_gate, 1)
+        mesh = active_rules().mesh if tp else None
+        x = spmd.enter(x, mesh, tp)
+        h = (nn.functional.silu(x @ spmd.weight(self.w_gate).to(c))
+             * (x @ spmd.weight(self.w_up).to(c)))
+        return spmd.reduce(h @ spmd.weight(self.w_down).to(c), mesh, tp)
 
 
 class GeluMLP(nn.Module):

@@ -29,8 +29,16 @@ token t+2, and ``loss`` adds 0.3 of its cross-entropy.
 ``apply`` and ``loss`` build no graph; ``training.train_loop`` turns
 gradients on and differentiates ``loss``. ``prefill`` and
 ``decode_step`` (serving) always run without autograd.
-The reference's sharding annotations (``lshard``) have no counterpart on
-one card.
+
+On a mesh (``shard_model``, then ``distributed.sharding.use_rules``),
+``apply`` and ``loss`` take the global batch on every rank, keep this
+rank's rows of it and run the layers on this rank's parameter blocks;
+the layers make the collectives the reference's ``lshard`` constraints
+imply (``distributed.spmd``), and ``loss`` returns the global loss and
+metrics on every rank. ``apply``'s logits are this rank's rows. The
+decoder-only families with attention (dense, MoE, vlm) run there; MLA,
+Mamba, RWKV, MTP, the encoder-decoder and serving on the mesh wait for
+ROADMAP A10b-6.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..distributed import sharding, spmd
 from . import encdec, layers, transformer
 from .config import ModelConfig
 
@@ -74,16 +83,16 @@ class Model(nn.Module):
     def _backbone(self, tokens, extra=None, caches=None, positions=None):
         """``extra`` (the vlm's patch embeddings) is cast to the compute
         dtype and put ahead of the token embeddings."""
-        x = self.embed(tokens)
+        x = self.embed(spmd.batch_rows(tokens))
         if extra is not None:
-            x = torch.cat([extra.to(self.cfg.cdtype), x], dim=1)
+            x = torch.cat([spmd.batch_rows(extra).to(self.cfg.cdtype), x], dim=1)
         x, new_caches, aux, dropped = self.stack(x, positions=positions, caches=caches)
-        return (layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), new_caches,
-                aux, dropped)
+        return (layers.rms_norm(x, spmd.weight(self.final_norm), self.cfg.norm_eps),
+                new_caches, aux, dropped)
 
     def _head(self, x):
         if self.lm_head is None:
-            return x @ self.embed.table.to(self.cfg.cdtype).T
+            return layers.vocab_logits(x, self.embed.table, 0, self.cfg)
         return self.lm_head(x)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -114,8 +123,9 @@ class Model(nn.Module):
         (targets rolled by one, the last position left out): (total,
         metrics)."""
         logits, aux = self.apply(batch)
-        ce, lse = cross_entropy(logits, batch["targets"])
-        total = ce + 1e-2 * aux["moe_aux"] + 1e-4 * torch.mean(lse ** 2)
+        ce, lse = cross_entropy(logits, spmd.batch_rows(batch["targets"]))
+        ce = spmd.batch_mean(ce)
+        total = ce + 1e-2 * aux["moe_aux"] + 1e-4 * spmd.batch_mean(torch.mean(lse ** 2))
         metrics = {"ce": ce, "moe_aux": aux["moe_aux"],
                    "moe_dropped": aux["moe_dropped"]}
         if self.cfg.mtp:
@@ -145,6 +155,7 @@ class Model(nn.Module):
         rotated from 0, as in the reference. A Mamba layer steps its state
         by the prompt's first token only (ROADMAP Queue C, LM fault 6), as
         the reference's does."""
+        _no_mesh("prefill")
         x, caches, _, _ = self._backbone(batch["tokens"], batch.get("patches"),
                                          caches=caches)
         return self._head(x[:, -1:]), caches
@@ -155,8 +166,28 @@ class Model(nn.Module):
         caches). Like the reference's, it passes no positions, so RoPE
         rotates the new token's keys at position 0 (ROADMAP Queue C), and
         takes no patches."""
+        _no_mesh("decode_step")
         x, caches, _, _ = self._backbone(token, caches=caches, positions=None)
         return self._head(x), caches
+
+
+def _no_mesh(what: str):
+    if sharding.active_rules() is not None:
+        raise NotImplementedError(f"{what} on the mesh (serving) waits for "
+                                  f"ROADMAP A10b-6")
+
+
+def shard_model(model, rules: sharding.ShardingRules):
+    """Keep this rank's block of each of ``model``'s parameters
+    (``sharding.shard_params``; every rank built the same weights) for
+    runs under ``use_rules(rules)``; returns the specs. Refuses the
+    layers the mesh path does not run yet."""
+    if isinstance(model, EncDecModel) or model.cfg.mtp or any(
+            mixer != "attn" for mixer, _ in model.stack.specs):
+        raise NotImplementedError(
+            f"{model.cfg.name}: the mesh runs the attention, MLP and MoE layers; "
+            f"MLA, Mamba, RWKV, MTP and the encoder-decoder wait for ROADMAP A10b-6")
+    return sharding.shard_params(model, rules)
 
 
 class EncDecModel(encdec.EncDec):

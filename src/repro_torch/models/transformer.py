@@ -24,13 +24,15 @@ changes memory, not values.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..distributed import spmd
+from ..distributed.sharding import active_rules, use_rules
 from . import attention, layers, mamba, mla, moe, rwkv
 from .config import ModelConfig
 
@@ -75,15 +77,29 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _within(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
 def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
+    """The recompute runs under the forward's sharding rules: autograd may
+    run it on a thread of its own (the card's), where the rules'
+    context variable is unset."""
+    rules = active_rules()
     if remat == "full":
-        return ckpt.checkpoint(layer, x, positions, use_reentrant=False)
-    if remat == "selective":
-        return ckpt.checkpoint(
-            layer, x, positions, use_reentrant=False,
-            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                         _save_weight_products))
-    raise ValueError(f"remat {remat!r}: none, full or selective")
+        def contexts():
+            return contextlib.nullcontext(), use_rules(rules)
+    elif remat == "selective":
+        def contexts():
+            fwd, rec = ckpt.create_selective_checkpoint_contexts(_save_weight_products)
+            return fwd, _within(rec, use_rules(rules))
+    else:
+        raise ValueError(f"remat {remat!r}: none, full or selective")
+    return ckpt.checkpoint(layer, x, positions, use_reentrant=False, context_fn=contexts)
 
 
 _MIXERS = {"attn": attention.Attention, "mla": mla.MLA, "mamba": mamba.Mamba,
@@ -113,10 +129,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions=None, cache=None):
         eps = self.cfg.norm_eps
-        y, cache = getattr(self, self.mixer_key)(layers.rms_norm(x, self.pre_norm, eps),
-                                                 positions=positions, cache=cache)
+        y, cache = getattr(self, self.mixer_key)(
+            layers.rms_norm(x, spmd.weight(self.pre_norm), eps),
+            positions=positions, cache=cache)
         x = x + y
-        h = layers.rms_norm(x, self.post_norm, eps)
+        h = layers.rms_norm(x, spmd.weight(self.post_norm), eps)
         if self.spec[1] == "moe":
             y, aux, dropped = self.moe(h)
             return x + y, cache, aux, dropped

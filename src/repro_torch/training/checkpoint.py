@@ -16,9 +16,17 @@ uint, float, bfloat16 tensors). ``restore`` fills a template in place:
 each tensor keeps its device and dtype, so a state restores onto
 whatever device its template was built on (the reference's elastic
 ``sharding`` argument) and a train state keeps its tensors' identity.
+
+A sharded state (leaves that hold a block, ``distributed.sharding.
+sharding_of``) is saved whole: every rank copies its block of each such
+leaf to the host and gathers it to rank 0 (a collective over the world:
+every rank calls ``save``), rank 0 writes, and all ranks wait for the
+write. ``restore`` reads the whole leaf on every rank and keeps the
+rank's block.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -28,6 +36,9 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.sharding import block_slices, sharding_of
 
 _BF16 = "bfloat16"
 
@@ -76,23 +87,34 @@ def save(directory: str, step: int, tree: Any, *, blocking: bool = True,
 
     Every leaf is copied to the host before this returns, so with
     ``blocking=False`` the writer thread holds the state as it was at
-    the call, whatever the caller then updates in place."""
-    os.makedirs(directory, exist_ok=True)
+    the call, whatever the caller then updates in place. A sharded state
+    is written before this returns, on any rank."""
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-
     leaves = tree_leaves(tree)
+    sharded = any(sharding_of(leaf) is not None for leaf in leaves)
+    writer = not (sharded and dist.is_initialized()) or dist.get_rank() == 0
     arrays = {}
     meta = {"step": step, "num_leaves": len(leaves), "treedef": _structure(tree),
             "dtypes": [], "crc": []}
+    # gloo gathers host tensors; another backend (NCCL) gets a gloo group
+    # of the world for this save
+    group = None if not sharded or dist.get_backend() == "gloo" else \
+        dist.new_group(backend="gloo")
     for i, leaf in enumerate(leaves):
-        arr = _leaf_to_np(leaf)
-        meta["dtypes"].append(_dtype_name(leaf))
-        meta["crc"].append(_crc(arr))
-        arrays[f"leaf_{i}"] = arr
+        whole = _gather_block(leaf, group) if sharding_of(leaf) is not None else leaf
+        if writer:
+            arr = _leaf_to_np(whole)
+            meta["dtypes"].append(_dtype_name(leaf))
+            meta["crc"].append(_crc(arr))
+            arrays[f"leaf_{i}"] = arr
+    if group is not None:
+        dist.destroy_process_group(group)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     def _write():
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -107,11 +129,35 @@ def save(directory: str, step: int, tree: Any, *, blocking: bool = True,
                    os.path.join(directory, "LATEST"))
         _gc(directory, keep)
 
-    if blocking:
+    if not writer:
+        pass
+    elif blocking or sharded:
         _write()
     else:
         threading.Thread(target=_write, daemon=True).start()
+    if sharded and dist.is_initialized():
+        dist.barrier()
     return final
+
+
+@torch.no_grad()
+def _gather_block(leaf: torch.Tensor, group) -> Optional[torch.Tensor]:
+    """The whole tensor of which ``leaf`` holds a block, on rank 0's host
+    (None on the other ranks): each rank sends the host copy of its block
+    once, and rank 0 places every rank's block by its mesh coordinate."""
+    sh = sharding_of(leaf)
+    block = leaf.detach().to("cpu", copy=True).contiguous()
+    me = dist.get_rank()
+    blocks = [torch.empty_like(block) for _ in range(dist.get_world_size())] \
+        if me == 0 else None
+    dist.gather(block, blocks, dst=0, group=group)
+    if me != 0:
+        return None
+    whole = torch.empty(sh.shape, dtype=block.dtype)
+    ranks = sh.mesh.mesh
+    for coord in itertools.product(*(range(n) for n in ranks.shape)):
+        whole[block_slices(sh, coord)] = blocks[int(ranks[coord])]
+    return whole
 
 
 def _gc(directory: str, keep: int):
@@ -160,6 +206,9 @@ def restore(directory: str, template: Any, step: Optional[int] = None) -> Any:
                 raise IOError(f"checkpoint corruption at leaf {i} "
                               f"(crc {crc} != {meta['crc'][i]})")
             got = _np_to_tensor(arr, meta["dtypes"][i])
+            sh = sharding_of(leaf)
+            if sh is not None and tuple(got.shape) == sh.shape:
+                got = got[block_slices(sh)]
             if got.dtype != leaf.dtype or got.shape != leaf.shape:
                 raise ValueError(f"leaf {i}: saved {meta['dtypes'][i]} "
                                  f"{tuple(got.shape)}, template {leaf.dtype} "

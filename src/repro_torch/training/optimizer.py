@@ -14,6 +14,12 @@ its decoupled decay rounds differently.
 The reference returns new trees; here ``adamw_update`` writes the
 parameters, the moments and the step counter in place (a full-width
 state is 13 GB on the card) and returns the same dicts.
+
+On a mesh each parameter is this rank's block (``distributed.sharding.
+shard_params``): the moments are blocks of the same layout, as the
+reference's ``device_put`` of the moments with the parameters' sharding
+makes them, the update is elementwise, and the global norm sums each
+block once over the mesh (``spmd.global_sq_norm``) before the clip.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ import math
 from typing import Collection, Dict, Iterable, Optional, Tuple
 
 import torch
+
+from ..distributed import spmd
+from ..distributed.sharding import mark, sharding_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,14 +58,16 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(cfg: OptimizerConfig, params: Dict[str, torch.Tensor]) -> Dict:
-    """Zeroed moments beside each parameter, and an int32 step counter on
-    the parameters' device."""
+    """Zeroed moments beside each parameter (blocks of its layout on a
+    mesh), and an int32 step counter on the parameters' device."""
     dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
     device = next(iter(params.values())).device
-    return {"mu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                   for k, p in params.items()},
-            "nu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                   for k, p in params.items()},
+
+    def moments():
+        return {k: mark(torch.zeros(p.shape, dtype=dt, device=p.device), sharding_of(p))
+                for k, p in params.items()}
+
+    return {"mu": moments(), "nu": moments(),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -74,7 +85,10 @@ def adamw_update(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
     norm reported before clipping. ``decayed``: the names that take weight
     decay; None decays each tensor of two or more dims."""
     step = state["step"] + 1
-    gnorm = global_norm(grads.values())
+    if any(sharding_of(p) is not None for p in params.values()):
+        gnorm = torch.sqrt(spmd.global_sq_norm(grads, params))
+    else:
+        gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

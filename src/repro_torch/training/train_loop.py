@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Set
 import torch
 from torch.profiler import record_function
 
+from ..distributed.sharding import sharding_of
 from .compression import compressed_psum_grads
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 
@@ -45,6 +46,9 @@ def init_train_state(model, tcfg: TrainConfig) -> Dict[str, Any]:
     state = {"params": params, "opt": init_opt_state(tcfg.opt, params),
              "step": torch.zeros((), dtype=torch.int32, device=model.device)}
     if tcfg.compress_grads:
+        if any(sharding_of(p) is not None for p in params.values()):
+            raise ValueError("int8 gradient compression quantizes whole rows; "
+                             "sharded parameters hold blocks")
         state["error_fb"] = {k: torch.zeros(p.shape, dtype=torch.float32,
                                             device=p.device)
                              for k, p in params.items()}

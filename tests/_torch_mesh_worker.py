@@ -1,6 +1,6 @@
 """Helpers of the port's mesh tests (``tests/test_torch_distributed.py``,
 ``test_torch_sharded_mesh.py``, ``test_torch_launch.py``,
-``test_torch_training.py``).
+``test_torch_training.py``, ``test_torch_mesh_models.py``).
 
 Two halves, run in separate processes:
 
@@ -15,7 +15,11 @@ Two halves, run in separate processes:
   ``out``; ``reference_process`` starts it.
 
 The scenarios, seeds and configurations are those of the reference's
-``tests/_dist_worker.py`` and ``tests/_shard_worker.py``.
+``tests/_dist_worker.py`` and ``tests/_shard_worker.py``; the mesh
+models' (``job_mesh_models``, ``ref_mesh_models``) run on the reference's
+``tests/_moe_worker.py`` mesh, (2, 2, 2) ``("pod", "data", "model")``,
+under ``production_rules``, from inputs that ``mesh_model_inputs`` draws
+with the JAX package and pickles beside the results.
 """
 import os
 import pickle
@@ -352,8 +356,209 @@ def job_compress(world):
             {k: v.numpy() for k, v in new_efb.items()})
 
 
+# the mesh models: MoE dispatches, losses and train steps, the launcher
+MOE_CAPACITY_FACTORS = (8.0, 0.5)
+MOE_IMPLS = ("psum", "a2a")
+MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b")
+MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_QK_SCALE = 8, 16, 2, 0.25
+# rows that do not divide over the (2, 2, 2) mesh's 4 data ranks: the
+# batch is replicated (the reference's rule); the MoE block on the first
+# MESH_SMALL_ROWS rows of its x, and REPLICATED_ARCH's loss and one train
+# step on a batch of MESH_SMALL_ROWS
+MESH_SMALL_ROWS = 2
+REPLICATED_ARCH = "olmoe-1b-7b"
+MESH_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=100)
+MESH_LAUNCH_ARGV = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "2",
+                    "--ckpt-every", "1", "--batch", "8", "--seq", "32",
+                    "--entities", "300"]
+
+
+def mesh_model_inputs(path):
+    """Draw the mesh models' inputs with the JAX package and pickle them to
+    ``path``: the reduced olmoe's ``moe_init(PRNGKey(0))`` block and x of
+    ``normal(PRNGKey(1), (4, 8, d))`` (the reference's
+    ``tests/_moe_worker.py``); each of ``MESH_ARCHS``'s
+    ``init_train_state(PRNGKey(0))`` with ``wq``/``wk`` scaled by
+    ``MESH_QK_SCALE`` and ``MESH_STEPS`` train batches; the launcher's
+    initial parameters (its arch's, scaled alike); one batch of
+    ``MESH_SMALL_ROWS`` rows for ``REPLICATED_ARCH``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import reduced_config
+    from repro.launch import specs
+    from repro.models import moe
+    from repro.models.model import build_model
+    from repro.training import optimizer, train_loop
+    cfg = reduced_config("olmoe-1b-7b")
+    out = {"moe_params": jax.tree.map(np.asarray, moe.moe_init(jax.random.PRNGKey(0),
+                                                               cfg)["moe"]),
+           "moe_x": np.asarray(jax.random.normal(jax.random.PRNGKey(1),
+                                                 (4, 8, cfg.d_model), jnp.float32)),
+           "models": {}}
+    tcfg = train_loop.TrainConfig(opt=optimizer.OptimizerConfig(**MESH_OPT))
+    for arch in MESH_ARCHS:
+        c = reduced_config(arch)
+        state = train_loop.init_train_state(build_model(c), jax.random.PRNGKey(0), tcfg)
+        state["params"] = jax.tree_util.tree_map_with_path(
+            lambda p, x: x * MESH_QK_SCALE if p[-1].key in ("wq", "wk") else x,
+            state["params"])
+        out["models"][arch] = {
+            "state": jax.tree.map(np.asarray, state),
+            "batches": [specs.train_batch(c, MESH_SEQ, MESH_BATCH, concrete=True,
+                                          rng=np.random.default_rng(7 + i))
+                        for i in range(MESH_STEPS)]}
+    out["launch_params"] = out["models"][MESH_LAUNCH_ARGV[1]]["state"]["params"]
+    out["replicated_batches"] = [specs.train_batch(
+        reduced_config(REPLICATED_ARCH), MESH_SEQ, MESH_SMALL_ROWS, concrete=True,
+        rng=np.random.default_rng(11))]
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _mesh_inputs():
+    with open(os.path.join(os.environ["REPRO_TEST_TMP"], "mesh_inputs.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _port_moe(inputs, mesh, rules):
+    """The reduced olmoe's MoE block on this rank's rows, each dispatch and
+    capacity factor: (out rows, aux, dropped); under the key
+    ``(MESH_SMALL_ROWS, cf, impl)`` the same on that many rows, which every
+    rank holds whole."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import shard_params, use_rules
+    from repro_torch.models.moe import MoE
+    out = {}
+    whole = torch.from_numpy(inputs["moe_x"])
+    for cf in MOE_CAPACITY_FACTORS:
+        for impl in MOE_IMPLS:
+            cfg = dataclasses.replace(reduced_config("olmoe-1b-7b"), capacity_factor=cf,
+                                      moe_impl=impl)
+            holder = torch.nn.Module()
+            holder.moe = MoE(cfg, "cpu", None).requires_grad_(False)
+            holder.moe.load_state_dict({k: torch.from_numpy(np.array(v))
+                                        for k, v in inputs["moe_params"].items()})
+            shard_params(holder, rules)
+            for key, x in (((cf, impl), whole),
+                           ((MESH_SMALL_ROWS, cf, impl), whole[:MESH_SMALL_ROWS])):
+                with use_rules(rules), torch.no_grad():
+                    y, aux, dropped = holder.moe(spmd.batch_rows(x))
+                out[key] = (y.numpy(), float(aux), int(dropped))
+    return out
+
+
+def _port_train(arch, state, batches, rules):
+    """``arch``'s loss on ``batches[0]``, then one train step a batch, from
+    the reference's initial ``state``, on this rank."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import convert
+    from repro_torch.models.model import build_model, shard_model
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
+    cfg = reduced_config(arch)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_jax(cfg, state["params"]))
+    shard_model(model, rules)
+    tcfg = TrainConfig(opt=OptimizerConfig(**MESH_OPT))
+    state = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    batches = [{k: torch.from_numpy(np.array(v)) for k, v in b.items()} for b in batches]
+    with use_rules(rules):
+        with torch.no_grad():
+            loss, metrics = model.loss(batches[0])
+        mets = []
+        for b in batches:
+            state, met = step(state, b)
+            mets.append({k: float(v) for k, v in met.items()})
+    return {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+            "steps": mets}
+
+
+def _port_models(inputs, rules):
+    """Each arch's loss on its first batch, then MESH_STEPS train steps'
+    metrics; ``REPLICATED_ARCH`` on its batch of ``MESH_SMALL_ROWS``."""
+    out = {arch: _port_train(arch, inputs["models"][arch]["state"],
+                             inputs["models"][arch]["batches"], rules)
+           for arch in MESH_ARCHS}
+    out["replicated"] = _port_train(REPLICATED_ARCH,
+                                    inputs["models"][REPLICATED_ARCH]["state"],
+                                    inputs["replicated_batches"], rules)
+    return out
+
+
+def _port_launch(inputs, mesh):
+    """The launcher on ``mesh`` from the reference's initial parameters:
+    its losses and its step-1 checkpoint (whole, as numpy); then a copy of
+    its checkpoints cut back to step 1 and resumed."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, init_train_state
+    tmp = os.environ["REPRO_TEST_TMP"]
+    cfg = reduced_config(MESH_LAUNCH_ARGV[1])
+    sd = convert.params_from_jax(cfg, inputs["launch_params"])
+
+    def from_reference(c, device=None, generator=None):
+        m = build_model(c, device=device)
+        m.load_state_dict(sd)
+        return m
+
+    argv = MESH_LAUNCH_ARGV + ["--device", "cpu"]
+    original = train.build_model
+    train.build_model = from_reference
+    try:
+        full = train.main(argv + ["--ckpt-dir", os.path.join(tmp, "launch_a")], mesh=mesh)
+        if dist.get_rank() == 0:
+            shutil.copytree(os.path.join(tmp, "launch_a"), os.path.join(tmp, "launch_b"))
+            shutil.rmtree(os.path.join(tmp, "launch_b", "step_0000000002"))
+            with open(os.path.join(tmp, "launch_b", "LATEST"), "w") as f:
+                f.write("1")
+        dist.barrier()
+        resumed = train.main(argv + ["--ckpt-dir", os.path.join(tmp, "launch_b")],
+                             mesh=mesh)
+    finally:
+        train.build_model = original
+    # each rank's blocks (every rank reports)
+    same = all(torch.equal(resumed.state["params"][k], p)
+               for k, p in full.state["params"].items())
+    template = init_train_state(build_model(cfg, device="cpu"),
+                                TrainConfig(opt=OptimizerConfig()))
+    checkpoint.restore(os.path.join(tmp, "launch_a"), template, step=1)
+    return {"losses": full.losses, "resumed_losses": resumed.losses,
+            "resumed_start": resumed.start, "resumed_equal": same,
+            "step1": {"params": {k: v.detach().numpy()
+                                 for k, v in template["params"].items()},
+                      "mu": {k: v.numpy() for k, v in template["opt"]["mu"].items()}}}
+
+
+def job_mesh_models(world):
+    """The mesh models on the (2, 2, 2) mesh of ``world`` = 8 ranks."""
+    import torch
+    from repro_torch.core.routing import linear_shard_index
+    from repro_torch.distributed.sharding import production_rules
+    mesh, _ = _mesh("3axis")
+    rules = production_rules(mesh)
+    inputs = _mesh_inputs()
+    return {"rows": linear_shard_index(mesh, ("pod", "data")),
+            "moe": _port_moe(inputs, mesh, rules),
+            "models": _port_models(inputs, rules),
+            "launch": _port_launch(inputs, mesh)}
+
+
 JOBS = {"hdb": job_hdb, "shard": job_shard, "launch": job_launch,
-        "launch_ckpt": job_launch_ckpt, "compress": job_compress}
+        "launch_ckpt": job_launch_ckpt, "compress": job_compress,
+        "mesh_models": job_mesh_models}
 
 
 def _rank_main(rank, world, init, tmp, job):
@@ -526,13 +731,105 @@ def ref_compress(n_dev=2):
             for r in range(n_dev)]
 
 
+def _auto_mesh(name):
+    """``_jax_mesh`` with Auto axes, which the reference's ``lshard``
+    needs (``jax.make_mesh`` makes Explicit ones under jax 0.9)."""
+    import jax
+    from jax.sharding import AxisType, Mesh
+    shape, axes = MESHES[name]
+    devs = np.asarray(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    return Mesh(devs, axes, axis_types=(AxisType.Auto,) * len(axes))
+
+
+def ref_mesh_models():
+    """The reference's counterpart of ``job_mesh_models`` on the Auto
+    (2, 2, 2) mesh under ``production_rules``."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+    import jax
+    from repro.configs import reduced_config
+    from repro.distributed.sharding import param_sharding, production_rules, use_rules
+    from repro.launch import train
+    from repro.models import moe
+    from repro.models.model import build_model
+    from repro.training import checkpoint, optimizer, train_loop
+    from repro_torch.configs import reduced_config as port_config
+    from repro_torch.models import convert
+    mesh = _auto_mesh("3axis")
+    rules = production_rules(mesh)
+    inputs = _mesh_inputs()
+    out = {"moe": {}, "models": {}}
+    for cf in MOE_CAPACITY_FACTORS:
+        for impl in MOE_IMPLS:
+            cfg = dataclasses.replace(reduced_config("olmoe-1b-7b"), capacity_factor=cf,
+                                      moe_impl=impl)
+            apply = jax.jit(lambda p, x: moe.moe_apply(p, x, cfg))
+            x = inputs["moe_x"]
+            for key, rows in (((cf, impl), x), ((MESH_SMALL_ROWS, cf, impl),
+                                                x[:MESH_SMALL_ROWS])):
+                with use_rules(rules):
+                    y, aux, dropped = apply(inputs["moe_params"], rows)
+                out["moe"][key] = (np.asarray(y), float(aux), int(dropped))
+    tcfg = train_loop.TrainConfig(opt=optimizer.OptimizerConfig(**MESH_OPT))
+
+    def run(arch, state, batches):
+        model = build_model(reduced_config(arch))
+        state = jax.tree.map(jax.numpy.asarray, state)
+        with use_rules(rules):
+            shard = param_sharding(state["params"], rules)
+            for path in (("params",), ("opt", "mu"), ("opt", "nu")):
+                tree = state
+                for key in path[:-1]:
+                    tree = tree[key]
+                tree[path[-1]] = jax.device_put(tree[path[-1]], shard)
+            loss, metrics = jax.jit(model.loss)(state["params"], batches[0])
+            step = jax.jit(train_loop.make_train_step(model, tcfg))
+            mets = []
+            for b in batches:
+                state, met = step(state, b)
+                mets.append({k: float(v) for k, v in met.items()})
+        return {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+                "steps": mets}
+
+    for arch in MESH_ARCHS:
+        out["models"][arch] = run(arch, inputs["models"][arch]["state"],
+                                  inputs["models"][arch]["batches"])
+    out["models"]["replicated"] = run(REPLICATED_ARCH,
+                                      inputs["models"][REPLICATED_ARCH]["state"],
+                                      inputs["replicated_batches"])
+    # the launcher, on this mesh in place of the production one, from the
+    # scaled initial parameters
+    train.make_production_mesh = lambda multi_pod=False: mesh
+    init = train.init_train_state
+    train.init_train_state = lambda m, key, t: {
+        **init(m, key, t), "params": jax.tree.map(jax.numpy.asarray,
+                                                  inputs["launch_params"])}
+    cfg = reduced_config(MESH_LAUNCH_ARGV[1])
+    with tempfile.TemporaryDirectory() as d:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            train.main(MESH_LAUNCH_ARGV + ["--mesh", "single", "--ckpt-dir", d])
+        template = jax.eval_shape(lambda: train_loop.init_train_state(
+            build_model(cfg), jax.random.PRNGKey(0), train_loop.TrainConfig()))
+        restored = checkpoint.restore(d, template, step=1)
+        pcfg = port_config(MESH_LAUNCH_ARGV[1])
+        out["launch"] = {"printed": printed.getvalue(), "step1": {
+            "params": {k: v.numpy() for k, v in convert.params_from_jax(
+                pcfg, jax.tree.map(np.asarray, restored["params"])).items()},
+            "mu": {k: v.numpy() for k, v in convert.params_from_jax(
+                pcfg, jax.tree.map(np.asarray, restored["opt"]["mu"])).items()}}}
+    return out
+
+
 # one JAX run a shard count (the result depends on the count, not the
 # mesh's shape; the reference's own tests hold the routed dedupe equal on
 # every mesh), two processes that run side by side
 REFS = {"hdb8": lambda: ref_hdb("flat"), "hdb4": lambda: ref_hdb("flat4"),
         "shard": ref_shard,
         "launch2": lambda: ref_launch(2), "launch1": lambda: ref_launch(1),
-        "compress": ref_compress}
+        "compress": ref_compress, "mesh_models": ref_mesh_models}
 
 
 def reference_process(job, out, n_dev=8):

@@ -459,9 +459,13 @@ def _launch_and_resume(arch, corpora, tmp_path, entities=None):
 
 
 def test_launcher_refuses_the_mesh_and_defaults_to_the_card(monkeypatch):
+    """Outside a world of the production mesh's size (256 or 512 ranks)
+    ``--mesh`` fails with the mesh's own error."""
     argv = ["--arch", ARCH, "--reduced", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="A10b"):
-        train.main(argv + ["--device", "cpu", "--mesh", "single"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"process group of {ranks} ranks; this one has 1"):
+            train.main(argv + ["--device", "cpu", "--mesh", mesh])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(argv)
