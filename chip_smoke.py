@@ -112,7 +112,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    b. the LM ServingEngine: tinyllama-1.1b as published (bfloat16,
       weights from a seeded generator on the card; its parameter count
       checked on the meta device), 16 requests of 2-32 prompt tokens over
-      8 slots, 32 new tokens each, max_len 1024, timed with CUDA events;
+      8 slots, 16 new tokens each, max_len 1024, timed with CUDA events;
       ten more decode steps profiled; then the same widths at 2 layers in float32 (TF32 off) on cuda and
       cpu: equal tokens, first-step logits within 1e-3;
    c. the MoE family and MLA: OLMOE-SERVE (olmoe-1b-7b as published) and
@@ -137,12 +137,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    e. the encoder-decoder and VLM families: WHISPER-SERVE (whisper-medium
       as published, its parameter count checked on the meta device): 8
       requests of 1500 seeded frames and 4-token prompts through
-      Model.encode, Model.prefill and 32 greedy decode steps with
+      Model.encode, Model.prefill and 16 greedy decode steps with
       {"enc_out"} (the engine cannot serve this family), encode, prefill
       and step ms from CUDA events, ten decode steps profiled, one
       full-size Model.loss; INTERNVL-SERVE (internvl2-76b at its
-      published widths cut to 24 of 80 layers) as 8c's cells, then a
-      patch prefill of 8 x (256 patches + 16 tokens) and 32 decode
+      published widths cut to 16 of 80 layers) as 8c's cells, then a
+      patch prefill of 8 x (256 patches + 16 tokens) and 16 decode
       steps, timed; then cuda == cpu in float32 (TF32 off) at the reduced
       configs: whisper's encode, prefill and 8 decode steps (logits
       within 1e-4 of the largest, equal tokens), internvl's engine
@@ -151,16 +151,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 9. training (``repro_torch.launch.train``, ``repro_torch.training``):
    a. the launcher on tinyllama-1.1b as published (bfloat16, seeded
       weights on the card, remat "full"), --dedup at its defaults (3,000
-      entities, batch 8, seq 256), 12 steps with a checkpoint every 6,
+      entities, batch 8, seq 256), 12 steps with a checkpoint at step 7,
       every dedup kernel launch held against its plain version (launch
       counts zeroed just before and read just after); every loss finite;
       the CUDA-event step time of steps 2-12, tokens/s, peak memory, the
-      checkpoints' size and save time; then a second run resumed from
-      step 6's checkpoint to step 12 (step counter, the loader's batch at
-      step 6 equal to the first run's); two more steps profiled (idle
+      checkpoint's size and save time; then a second run resumed from
+      step 7's checkpoint to step 12 (step counter, the loader's batch at
+      step 7 equal to the first run's); two more steps profiled (idle
       share, launches a step, top device kernels) and the optimizer's
       device time;
-   b. the same widths at 2 layers in float32 (TF32 off) from the same
+   b. the same widths at 1 layer in float32 (TF32 off) from the same
       weights on cuda and cpu: 3 train steps with wq and wk scaled by
       1/8 give loss, ce and grad_norm within rtol 1e-4; one step at the
       unscaled init is printed beside them; and, in a process of its own
@@ -174,7 +174,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       memory; two more steps profiled; then both families' reduced
       configs in float32 (TF32 off) on cuda and cpu: 3 train steps give
       loss, ce, moe_aux and grad_norm within rtol 1e-4;
-   d. RWKV6-TRAIN: rwkv6-1.6b's widths at 4 of 24 layers through the
+   d. RWKV6-TRAIN: rwkv6-1.6b's widths at 2 of 24 layers through the
       train step as 9c (6 steps, steps 2-6 timed, one more profiled);
       then the reduced rwkv6 and jamba configs cuda == cpu as 9c holds
       its families;
@@ -187,7 +187,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       gloo ranks spawned on the card, a (2, 2) ("data", "model") mesh
       under production_rules, through launch/train.main(argv, mesh=...)
       with --dedup (every dedup launch held against its plain version on
-      each rank): 3 steps, steps 2-3 timed (the slowest rank), tokens a
+      each rank): 2 steps, step 2 timed (the slowest rank), tokens a
       second, peak memory a rank, every rank's losses finite; one more
       step, profiled on rank 0 and under the sync census on the others;
       then one batch at capacity factor 8 in float32 by the psum and the
@@ -195,6 +195,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       rank's logits within MESH_LOGITS_RTOL of each other, the
       cross-entropies within MESH_CE_RTOL, nothing dropped, and two
       planted faults outside the logits' bound;
+   g. every other family on the same ranks and mesh at its published
+      widths, cut in depth: DEEPSEEK-MESH-TRAIN (1 layer of MLA and the
+      MTP head), JAMBA-MESH-TRAIN (1 Mamba+MoE layer, 2 experts) and
+      RWKV6-MESH-TRAIN (2 layers) through the launcher with --dedup
+      (every dedup launch held against its plain version on each rank),
+      WHISPER-MESH-TRAIN (2 + 2 layers) through make_train_step: 2 steps,
+      the first profiled on rank 0, the second timed (the slowest rank),
+      tokens (frames) a second, peak memory a rank, losses equal on every
+      rank, the sync census on ranks 1-3; then each family's float32
+      check at one layer: each rank's logits within FAMILY_LOGITS_RTOL
+      (median token FAMILY_TOKEN_RTOL) of a one-rank meshless model, ce
+      within MESH_CE_RTOL, and a planted fault outside the bounds;
 10. host-sync census (``repro_torch.analysis.sync_census``): one untimed
     run of each path under torch's sync debug mode, none of them timed:
     SYN1M through dedup_corpus(blocker="hdb"), a STREAM100K delta, a
@@ -202,7 +214,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     launch/train.py --dedup for two TINYLLAMA-TRAIN steps, an OLMOE-SERVE
     and a DEEPSEEK-SERVE decode step, two OLMOE-TRAIN steps, an
     RWKV6-SERVE and a JAMBA-SERVE decode step, two RWKV6-TRAIN steps
-    (4 layers), a WHISPER-SERVE decode step, INTERNVL-SERVE's patch
+    (2 layers), a WHISPER-SERVE decode step, INTERNVL-SERVE's patch
     prefill and two WHISPER-TRAIN steps.
     Each prints its total syncs, the syncs per profiler range and its ten heaviest
     sites with their inventory reasons (``census`` lines); a run that
@@ -815,14 +827,17 @@ def smoke_pipeline():
               f"{gpu.num_components} components (cuda == cpu)", flush=True)
 
 
-def profile_breakdown(run, tag="SYN1M"):
+def profile_breakdown(run, tag="SYN1M", host=True):
     """Run ``run`` under torch.profiler; print the stage ranges, the
     device's busy time and idle share of the wall time, the top device
     kernels and the top host ops, each line marked with ``tag``. Returns
     (run's result, wall seconds, device busy seconds, device launches,
-    {range: device seconds of the kernels its ops launched})."""
+    {range: device seconds of the kernels its ops launched}). Without
+    ``host`` only the device is traced (no ranges, no host ops): a run of
+    tens of thousands of launches reads back in seconds, not minutes."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
@@ -836,6 +851,8 @@ def profile_breakdown(run, tag="SYN1M"):
     print(f"profile {tag}: wall_s={wall:.3f} device_busy_s={busy:.3f} "
           f"device_idle_share={1 - busy / wall:.4f} device_launches={launches}",
           flush=True)
+    if not host:
+        return out, wall, busy, launches, {}
     events = prof.key_averages()
     ranges = {}
     for e in sorted(events, key=lambda e: e.key):
@@ -1731,12 +1748,13 @@ SERVE_PROBE_PATH = ("combine64",)
 SERVE_INGEST_PATH = ("cms_update", "combine64", "tri_decode", "radix_sort",
                      "radix_digit_counts")
 # the LM engine: tinyllama-1.1b as published, 16 requests of 2-32 prompt
-# tokens over 8 slots, 32 new tokens each; admission prefills one token a
+# tokens over 8 slots, 16 new tokens each (32 until phase 9g came, for
+# the script's time); admission prefills one token a
 # step, so the shared pos stays well under max_len
 LM_ARCH = "tinyllama-1.1b"
 LM_SLOTS = 8
 LM_REQUESTS = 16
-LM_MAX_NEW = 32
+LM_MAX_NEW = 16
 LM_MAX_LEN = 1024
 # the cuda == cpu check: the same widths at 2 layers in float32, TF32 off;
 # first-step logits within 1e-3 (float32 products summed in another order
@@ -2308,7 +2326,8 @@ def serving_recurrent():
 # WHISPER-SERVE: whisper-medium as published, WHISPER_BATCH requests in
 # one batch: (8, 1500, 1024) frames from a numpy seed (a 30-second window
 # after the stubbed conv front end), 4-token prompts, whisper's 448-token
-# decoder context, WHISPER_NEW greedy decode steps. The ServingEngine
+# decoder context, WHISPER_NEW greedy decode steps (32 until phase 9g
+# came, for the script's time). The ServingEngine
 # cannot serve this family (ROADMAP Queue C, LM fault 8), so the cell goes
 # through Model.encode, Model.prefill (which encodes again and decodes the
 # prompt's last token only, LM fault 7) and Model.decode_step with
@@ -2321,16 +2340,17 @@ WHISPER_BATCH = 8
 WHISPER_FRAMES = 1500
 WHISPER_PROMPT = 4
 WHISPER_MAX_LEN = 448
-WHISPER_NEW = 32
+WHISPER_NEW = 16
 # INTERNVL-SERVE: internvl2-76b at its published widths cut to
-# VLM_SERVE_LAYERS of 80 layers (24 since phase 9f came, for the script's
-# time; 40 were 36.3e9 parameters, 72.7 GB in bfloat16; all 80 are 141 GB
-# and wait for the mesh's serving path, ROADMAP A10b-6), phase 8b's engine traffic
+# VLM_SERVE_LAYERS of 80 layers (24 since phase 9f came, 16 since phase 9g
+# came, for the script's time; 40 were 36.3e9 parameters, 72.7 GB in
+# bfloat16; all 80 are 141 GB and wait for the mesh's serving path,
+# ROADMAP A10b-6b), phase 8b's engine traffic
 # (text only: the engine feeds no patches), then a patch prefill of
 # WHISPER_BATCH rows of 256 patch embeddings and PATCH_TEXT tokens into
 # the caches and WHISPER_NEW decode steps
 VLM_ARCH = "internvl2-76b"
-VLM_SERVE_LAYERS = 24
+VLM_SERVE_LAYERS = 16
 PATCH_TEXT = 16
 # the cuda == cpu checks at the reduced configs (float32, TF32 off):
 # whisper on CHECK_FRAMES frames with CHECK_NEW decode steps, internvl's
@@ -2585,11 +2605,13 @@ def serving_encdec():
 # ---------------------------------------------------------------------------
 
 # the launcher on tinyllama-1.1b as published, at its defaults (--dedup of
-# 3,000 entities, batch 8, seq 256): 12 steps, a checkpoint every 6, then a
-# run resumed from step 6
+# 3,000 entities, batch 8, seq 256): 12 steps, a checkpoint every 7 (one,
+# at step 7: since phase 9g came, for the script's time, an 11 GB save
+# taking 17-22 s on the H100; every 6 wrote two, and the resumed run a third), then a
+# run resumed from step 7
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_STEPS = 12
-TRAIN_CKPT_EVERY = 6
+TRAIN_CKPT_EVERY = 7
 TRAIN_PROFILED_STEPS = 2
 # the cuda == cpu check: the same widths at 2 layers in float32, TF32 off,
 # wq and wk scaled by 1/8 (wq's init at fan-in d_model: the reference's
@@ -2651,10 +2673,7 @@ def training_full_width(kernels):
         del run
         torch.cuda.empty_cache()
 
-        # killed after step 6's checkpoint: step 12's never written
-        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:010d}"))
-        with open(os.path.join(ckpt, "LATEST"), "w") as f:
-            f.write(str(TRAIN_CKPT_EVERY))
+        # as if killed after step 7's checkpoint, the only one written
         for k in kernels:
             k.launches = 0
         checked2 = check_launches(lambda: runs.append(train.main(argv)), kernels)
@@ -2698,7 +2717,7 @@ def training_full_width(kernels):
 
 
 def training_check():
-    """Phase 9b: cuda == cpu at 2 layers in float32, and the deterministic
+    """Phase 9b: cuda == cpu at 1 layer in float32, and the deterministic
     resume in a process of its own."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -2890,9 +2909,10 @@ def training_moe():
 # every layer, in the forward, the recompute and the backward: at all 24
 # layers a step took 8.7 s and 276k launches on an H100 80GB HBM3, and
 # reading its profile back about 400 s (PERF.md section 4). So the cell is
-# cut to RWKV_TRAIN_LAYERS of 24 layers and one profiled step
-# (RWKV_TRAIN_LAYERS=24 through scripts/chip_phases.py runs it whole)
-RWKV_TRAIN_LAYERS = 4
+# cut to RWKV_TRAIN_LAYERS of 24 layers (4 until phase 9g came, for the
+# script's time) and one profiled step (RWKV_TRAIN_LAYERS=24 through
+# scripts/chip_phases.py runs it whole)
+RWKV_TRAIN_LAYERS = 2
 RWKV_TRAIN_STEPS = 6
 RWKV_TRAIN_PROFILED_STEPS = 1
 
@@ -2999,13 +3019,16 @@ def training_encdec():
 
 # the mesh train cell MESH-OLMOE-TRAIN (phase 9f): olmoe-1b-7b's published
 # widths (d_model 2048, 16 heads of 128, 64 experts of d_ff 1024 top-8,
-# vocab 50304, bfloat16, remat full) cut to MESH_TRAIN_LAYERS of 16 layers,
+# vocab 50304, bfloat16, remat full) cut to MESH_TRAIN_LAYERS of 16 layers
+# (at 2, on the H100, the planted faults below moved the logits by only
+# 0.035 and 0.012, against bounds of 0.03 and 0.005),
 # trained by the launcher's mesh function (launch/train.main(argv,
 # mesh=...), --dedup) on MESH_RANKS gloo ranks of the one card, a
 # MESH_TRAIN_SHAPE ("data", "model") DeviceMesh under production_rules
 # (FSDP over "data"; heads, experts and vocab over "model"), the
-# launcher's batch (8 x 256), MESH_TRAIN_STEPS steps at the published
-# capacity factor, step 2 on timed; then one more step, profiled on rank 0
+# launcher's batch (8 x 256), MESH_TRAIN_STEPS steps (3 until phase 9g came
+# into the same spawn, for the script's time) at the published capacity
+# factor, step 2 on timed; then one more step, profiled on rank 0
 # and under the sync census on the others;
 # then one batch at capacity factor MESH_CHECK_CF, where nothing drops,
 # from the initial weights in float32 (TF32 off): in bfloat16 the
@@ -3024,7 +3047,7 @@ def training_encdec():
 # psum logits: the check is shown to see them. The bounds were set from PR 24's
 # float32 readings on the card (PERF.md section 4)
 MESH_TRAIN_LAYERS = 4
-MESH_TRAIN_STEPS = 3
+MESH_TRAIN_STEPS = 2
 MESH_TRAIN_SHAPE = (2, 2)
 MESH_CHECK_CF = 8.0
 MESH_LOGITS_RTOL = 3e-2
@@ -3038,18 +3061,18 @@ def mesh_train_config(**changes):
                                **changes)
 
 
-def mesh_train_rank(rank, world, init, tmp):
-    """One of phase 9f's ranks: the training run (every dedup launch held
-    against its plain version), the census of one more step, the
-    capacity-factor check; its results pickled to ``tmp``."""
-    import contextlib
-    import io
+def mesh_train_rank(rank, world, init, tmp, olmoe=True):
+    """One of phase 9f's ranks: with ``olmoe`` the training run (every
+    dedup launch held against its plain version), the census of one more
+    step, the capacity-factor check; then phase 9g (``family_phase``);
+    its results pickled to ``tmp``."""
     import pickle
     import torch.distributed as tdist
     from torch.distributed.device_mesh import DeviceMesh
-    from repro_torch.distributed.sharding import production_rules, use_rules
-    from repro_torch.launch import train
-    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.distributed.sharding import production_rules
+    # four ranks' caches on one card: freed blocks are given back to the
+    # other sizes (9g's 3.7e9-parameter cells ran out of memory without)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
     tdist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     out = {}
@@ -3057,56 +3080,66 @@ def mesh_train_rank(rank, world, init, tmp):
         mesh = DeviceMesh("cuda", torch.arange(world).reshape(MESH_TRAIN_SHAPE),
                           mesh_dim_names=("data", "model"))
         rules = production_rules(mesh)
-        cfg = mesh_train_config()
-        argv = ["--arch", MOE_ARCH, "--steps", str(MESH_TRAIN_STEPS), "--dedup",
-                "--ckpt-every", str(MESH_TRAIN_STEPS + 1),
-                "--ckpt-dir", os.path.join(tmp, "ckpt")]
-        kernels = all_kernels()
-        runs = []
-        get_config = train.get_config
-        train.get_config = lambda arch: cfg
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            for k in kernels:
-                k.launches = 0
-            out["checked"] = check_launches(
-                lambda: runs.append(train.main(argv, mesh=mesh)), kernels)
-            out["launches"] = {k.name: k.launches for k in kernels}
-        finally:
-            train.get_config = get_config
-        torch.cuda.synchronize()
-        out["run_s"] = time.perf_counter() - t0  # repro: noqa[R004] synchronized on the line above
-        out["peak"] = torch.cuda.max_memory_allocated()
-        run = runs.pop()
-        out.update(metrics=run.metrics, step_ms=run.step_ms,
-                   tokens=run.loader.cfg.batch_size * run.loader.cfg.seq_len,
-                   local_params=sum(p.numel() for p in run.model.parameters()))
-        step_fn = make_train_step(run.model, run.tcfg)
-
-        def one_step():
-            x, y = run.loader.batch(MESH_TRAIN_STEPS)
-            with use_rules(rules):
-                step_fn(run.state, {"tokens": x, "targets": y})
-
-        # one step: profiled on rank 0, under the census on the others
-        if rank == 0:
-            out["profile"] = profile_breakdown(one_step, tag="MESH-OLMOE-TRAIN rank 0 x1")[1:4]
-        else:
-            quiet = contextlib.nullcontext() if rank == 1 else contextlib.redirect_stdout(
-                io.StringIO())
-            with quiet:
-                out["census"] = census(f"MESH-OLMOE-TRAIN rank {rank} one step",
-                                       one_step).total
-        batch = dict(zip(("tokens", "targets"), run.loader.batch(0)))
-        del run, step_fn
-        torch.cuda.empty_cache()
-        out["check"] = mesh_check(batch, mesh, rules)
+        if olmoe:
+            out.update(mesh_olmoe_rank(rank, tmp, mesh, rules))
+        out["families"] = family_phase(rank, tmp, mesh, rules, all_kernels())
         tdist.barrier()
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def mesh_olmoe_rank(rank, tmp, mesh, rules):
+    """Phase 9f's MESH-OLMOE-TRAIN on this rank (``mesh_train_rank``)."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import make_train_step
+    out = {}
+    cfg = mesh_train_config()
+    argv = ["--arch", MOE_ARCH, "--steps", str(MESH_TRAIN_STEPS), "--dedup",
+            "--ckpt-every", str(MESH_TRAIN_STEPS + 1),
+            "--ckpt-dir", os.path.join(tmp, "ckpt")]
+    kernels = all_kernels()
+    runs = []
+    get_config = train.get_config
+    train.get_config = lambda arch: cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        for k in kernels:
+            k.launches = 0
+        out["checked"] = check_launches(
+            lambda: runs.append(train.main(argv, mesh=mesh)), kernels)
+        out["launches"] = {k.name: k.launches for k in kernels}
+    finally:
+        train.get_config = get_config
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0  # repro: noqa[R004] synchronized on the line above
+    out["peak"] = torch.cuda.max_memory_allocated()
+    run = runs.pop()
+    out.update(metrics=run.metrics, step_ms=run.step_ms,
+               tokens=run.loader.cfg.batch_size * run.loader.cfg.seq_len,
+               local_params=sum(p.numel() for p in run.model.parameters()))
+    step_fn = make_train_step(run.model, run.tcfg)
+
+    def one_step():
+        x, y = run.loader.batch(MESH_TRAIN_STEPS)
+        with use_rules(rules):
+            step_fn(run.state, {"tokens": x, "targets": y})
+
+    # one step: profiled on rank 0, under the census on the others
+    if rank == 0:
+        out["profile"] = profile_breakdown(one_step, tag="MESH-OLMOE-TRAIN rank 0 x1")[1:4]
+    else:
+        with quiet_unless(rank):
+            out["census"] = census(f"MESH-OLMOE-TRAIN rank {rank} one step",
+                                   one_step).total
+    batch = dict(zip(("tokens", "targets"), run.loader.batch(0)))
+    del run, step_fn
+    torch.cuda.empty_cache()
+    out["check"] = mesh_check(batch, mesh, rules)
+    return out
 
 
 def mesh_check(batch, mesh, rules):
@@ -3189,19 +3222,405 @@ def mesh_check(batch, mesh, rules):
     return {"runs": out, "dists": dists}
 
 
-def training_mesh():
-    """Phase 9f: MESH-OLMOE-TRAIN on MESH_RANKS gloo ranks of the card.
-    Returns rank 0's dedup launches (each rank launches as many)."""
+# phase 9g: every family trains on the mesh, inside phase 9f's spawn (the
+# same four gloo ranks, the same (2, 2) ("data", "model") mesh under
+# production_rules). Each cell at its published widths, cut in depth
+# (PERF.md section 4), bfloat16, remat full, batch 8 x 256 (whisper: 8 x
+# 1500 frames, 187 decoder tokens), MESH_TRAIN_STEPS steps: the first
+# profiled on rank 0 (untimed: it includes first-call set-up), the second
+# timed with CUDA events on the slowest rank (on ranks 1-3 under the
+# sync census, which runs from the first step to the end: a few syncs
+# a step, each a stack walk). DEEPSEEK-MESH-TRAIN: deepseek-v3-671b's
+# first FAMILY_DEEP_LAYERS layers (dense-FFN MLA: moe_first_dense is 3)
+# and its MTP head, 3.12e9 parameters at 1; JAMBA-MESH-TRAIN: jamba's
+# first FAMILY_DEEP_LAYERS layers (Mamba+MoE, then Mamba+MLP) with its
+# 16 experts cut to 2, top-2 kept (one MoE layer at its published widths
+# is 9.7e9 parameters, 116 GB with its moments), 2.7e9 parameters at 1.
+# At 2 layers each (3.7e9) a deepseek step took 45 s on the H100 through
+# gloo's staging (about 0.2 GB/s a rank), more than the script's clock
+# allows;
+# RWKV6-MESH-TRAIN: rwkv6-1.6b at FAMILY_RWKV_LAYERS of 24 layers, as
+# phase 9d (at 4 layers, and whisper at 4 + 4, the phase took 132 s on
+# the H100); these three through the launcher (launch/train.main(argv,
+# mesh=...), --dedup, every dedup launch held against its plain version).
+# WHISPER-MESH-TRAIN: whisper-medium at FAMILY_WHISPER_LAYERS encoder and
+# as many decoder layers through make_train_step (the launcher cannot
+# train the family: training fault 5). Then each family's float32 check
+# (TF32 off) at one layer of its published widths (jamba's 2 experts
+# kept): each rank's rows of the logits (and of deepseek's MTP logits)
+# against a one-rank meshless model of the same weights within
+# FAMILY_LOGITS_RTOL (the relative distance of the whole) and
+# FAMILY_TOKEN_RTOL (the median token's), the cross-entropy of the rows
+# within MESH_CE_RTOL, and one planted fault on the meshless model
+# (FAMILY_FAULTS) outside both logits bounds. The bounds are set from the
+# families' own float32 readings on the card (1.3e-6 to 2.3e-5, PERF.md
+# section 4): phase 9f's are set for olmoe's routing, and a fault that
+# skips one reduce can sit inside them (Mamba's unreduced B/C/dt, 0.023)
+FAMILY_LOGITS_RTOL = 1e-4
+FAMILY_TOKEN_RTOL = 1e-4
+FAMILY_DEEP_LAYERS = 1
+FAMILY_RWKV_LAYERS = 2
+FAMILY_WHISPER_LAYERS = 2
+
+
+def family_configs():
+    """{cell tag: (config of the cell, its published depth, through the
+    launcher)}."""
+    from repro_torch.configs import get_config
+    w = FAMILY_WHISPER_LAYERS
+    return {
+        "DEEPSEEK-MESH-TRAIN": (dataclasses.replace(get_config(MLA_ARCH),
+                                                    num_layers=FAMILY_DEEP_LAYERS), 61, True),
+        "JAMBA-MESH-TRAIN": (dataclasses.replace(get_config(JAMBA_ARCH),
+                                                 num_layers=FAMILY_DEEP_LAYERS,
+                                                 moe_num_experts=2), 72, True),
+        "RWKV6-MESH-TRAIN": (dataclasses.replace(get_config(RWKV_ARCH),
+                                                 num_layers=FAMILY_RWKV_LAYERS), 24, True),
+        "WHISPER-MESH-TRAIN": (dataclasses.replace(get_config(WHISPER_ARCH),
+                                                   num_layers=2 * w, encoder_layers=w,
+                                                   decoder_layers=w), 48, False),
+    }
+
+
+def quiet_unless(rank):
+    """Print as rank 1 only (the census lines of ranks 2-3 are not shown)."""
+    import contextlib
+    import io
+    return contextlib.nullcontext() if rank == 1 else contextlib.redirect_stdout(
+        io.StringIO())
+
+
+def census_counts(c):
+    """(syncs in all, syncs inside a ``train.*`` range) of a census."""
+    return c.total, sum(n for r, n in c.ranges.items() if r.startswith("train."))
+
+
+def first_step_observed(make, rank, tag, out):
+    """``make_train_step`` whose first step runs profiled on rank 0; on
+    the other ranks the sync census opens at the first step (into
+    ``out["census_open"]``; ``family_cell`` closes it), and every rank
+    waits for the others after it. RWKV's first step is profiled on the
+    device only (``profile_breakdown``'s ``host``)."""
+    import torch.distributed as tdist
+    from repro_torch.analysis.sync_census import SyncCensus
+
+    def factory(model, tcfg):
+        step = make(model, tcfg)
+        seen = []
+
+        def observed(state, batch):
+            if seen:
+                return step(state, batch)
+            seen.append(True)
+            if rank != 0:
+                torch.cuda.synchronize()
+                out["census_open"] = SyncCensus().__enter__()
+                res = step(state, batch)
+            else:
+                box = []
+                out["profile"] = profile_breakdown(
+                    lambda: box.append(step(state, batch)), tag=f"{tag} rank 0 first step",
+                    host=model.cfg.family != "ssm")[1:4]
+                res = box[0]
+            # the second step starts together on every rank, not after rank
+            # 0's profile is read back (the RWKV step's 47,017 launches
+            # took 47 s to read back with the host ops on the H100's host)
+            tdist.barrier()
+            return res
+
+        return observed
+
+    return factory
+
+
+def census_closed(rank, tag, out):
+    """Close the census that ``first_step_observed`` opened on this rank
+    and check it (``census_checked``): its counts."""
+    c = out.pop("census_open")
+    c.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    with quiet_unless(rank):
+        return census_counts(census_checked(f"{tag} rank {rank}", c))
+
+
+def family_cell(tag, cfg, launcher, rank, tmp, mesh, rules, kernels):
+    """One phase-9g cell on this rank: its losses, step ms, peak, the
+    profile or census of its first step and, through the launcher, its
+    checked dedup launches."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model, shard_model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptimizerConfig
+    steps = MESH_TRAIN_STEPS
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # on ranks 1-3 the census runs from the first step to the launcher's
+    # end (its metrics' download and its events' synchronize): a step of
+    # the dense families makes no host sync that the debug mode sees (gloo
+    # stages on threads of its own), and a census that sees none cannot
+    # tell it from a disarmed one; the dedup before it is left out, since
+    # check_launches runs each kernel's plain version beside it
+    observed = first_step_observed(train_loop.make_train_step, rank, tag, out)
+    if launcher:
+        argv = ["--arch", cfg.name, "--steps", str(steps), "--dedup", "--ckpt-every",
+                str(steps + 1), "--ckpt-dir", os.path.join(tmp, f"ckpt-{tag}")]
+        runs = []
+
+        def watched():
+            runs.append(train.main(argv, mesh=mesh))
+            if rank != 0:
+                out["census"] = census_closed(rank, f"{tag} steps and launcher's end", out)
+
+        patched = train.get_config, train.make_train_step
+        train.get_config, train.make_train_step = (lambda arch: cfg), observed
+        try:
+            for k in kernels:
+                k.launches = 0
+            out["checked"] = check_launches(watched, kernels)
+            out["launches"] = {k.name: k.launches for k in kernels}
+        finally:
+            train.get_config, train.make_train_step = patched
+        run = runs.pop()
+        mets, step_ms = run.metrics, run.step_ms
+        out["tokens"] = run.loader.cfg.batch_size * run.loader.cfg.seq_len
+        out["local_params"] = sum(p.numel() for p in run.model.parameters())
+        del run
+    else:
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        shard_model(model, rules)
+        out["local_params"] = sum(p.numel() for p in model.parameters())
+        tcfg = train_loop.TrainConfig(opt=OptimizerConfig(
+            lr=3e-4, warmup_steps=min(20, steps // 4), total_steps=steps))
+        state = train_loop.init_train_state(model, tcfg)
+        step_fn = observed(model, tcfg)
+        batches, marks, mets = [], [], []
+        with use_rules(rules):
+            for i in range(steps):
+                # the census (ranks 1-3) takes in the batch's upload
+                batches.append(whisper_batch(cfg, i))
+                begin = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                begin.record()
+                _, m = step_fn(state, batches[-1])
+                end.record()
+                marks.append((begin, end))
+                mets.append(m)
+        if rank != 0:
+            out["census"] = census_closed(rank, f"{tag} steps", out)
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in marks]
+        mets = [{k: float(v) for k, v in m.items()}  # repro: noqa[R001] the metrics read once, after the steps
+                for m in mets]
+        frames, tokens = batches[0]["frames"].shape[:2], batches[0]["tokens"].shape
+        out["tokens"] = frames[0] * frames[1]
+        out["decoder_tokens"] = tokens[0] * tokens[1]
+        del model, state, step_fn, batches
+    torch.cuda.synchronize()
+    out.update(metrics=mets, step_ms=step_ms, peak=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    return out
+
+
+# the planted faults of the float32 checks, each on the meshless model,
+# each what one rank of the first "model" coordinate computes when a
+# collective of its layer is skipped or misplaced: MLA's query heads
+# offset by one block of the 2-way split; Mamba's B, C and dt partial
+# sums not reduced (from the first half of the inner channels alone);
+# RWKV's w_o reduce skipped (its first block of rows alone); whisper's
+# encoder output left unreduced (every encoder layer's attention output
+# and MLP down projection from the first block of heads and ffn rows)
+def plant_fault(tag, model):
+    with torch.no_grad():
+        if tag.startswith("DEEPSEEK"):
+            for layer in model.stack.layers:
+                w = layer.attn.w_uq
+                w.copy_(torch.roll(w, w.shape[1] // 2, 1))
+        elif tag.startswith("JAMBA"):
+            for layer in model.stack.layers:
+                if layer.mixer_key == "mamba":
+                    for w in (layer.mamba.w_b, layer.mamba.w_c, layer.mamba.w_dt):
+                        w[w.shape[0] // 2:] = 0
+        elif tag.startswith("RWKV6"):
+            for layer in model.stack.layers:
+                layer.rwkv.w_o[layer.rwkv.w_o.shape[0] // 2:] = 0
+        else:
+            for layer in model.enc:
+                for w in (layer.attn.wo, layer.mlp.w_down):
+                    w[w.shape[0] // 2:] = 0
+
+
+FAMILY_FAULTS = {"DEEPSEEK-MESH-TRAIN": "MLA heads offset by one block",
+                 "JAMBA-MESH-TRAIN": "Mamba B/C/dt partial sums not reduced",
+                 "RWKV6-MESH-TRAIN": "RWKV w_o reduce skipped",
+                 "WHISPER-MESH-TRAIN": "whisper encoder output left unreduced"}
+
+
+def family_check(tag, cfg, mesh, rules):
+    """Phase 9g's float32 check of one family on this rank: (ce of the
+    rows by the mesh, meshless and faulty models, {pair: distances})."""
+    from repro_torch.core.routing import linear_shard_index
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch import specs
+    from repro_torch.models.model import build_model, cross_entropy, shard_model
+    import torch.distributed as tdist
+    torch.backends.cuda.matmul.allow_tf32 = False  # a spawned rank's own setting
+    depth = (dict(num_layers=2, encoder_layers=1, decoder_layers=1)
+             if cfg.family == "encdec" else dict(num_layers=1))
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32", **depth)
+    frames = WHISPER_FRAMES if cfg.family == "encdec" else 256
+    batch = specs.train_batch(cfg, frames, 8, concrete=True,
+                              rng=np.random.default_rng(3), device="cuda")
+
+    def built():
+        return build_model(cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def run(model, rows):
+        """(the logits, the MTP head's after them where there is one; ce)."""
+        with torch.no_grad():
+            logits, aux = model.apply(rows)
+            ce = cross_entropy(logits, spmd.batch_rows(rows["targets"]))[0]
+            if "mtp_logits" in aux:
+                logits = torch.cat([logits, aux["mtp_logits"]])
+        return logits.float(), float(ce)
+
+    def dist_(a, b):
+        tok = (torch.linalg.vector_norm(a - b, dim=-1)
+               / torch.linalg.vector_norm(b, dim=-1)).flatten()
+        return (float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)),
+                float(tok.median()))
+
+    model = built()
+    shard_model(model, rules)
+    torch.cuda.empty_cache()
+    with use_rules(rules):
+        mesh_logits, mesh_ce = run(model, batch)
+    del model
+    torch.cuda.empty_cache()
+    ces, dists = {"mesh": mesh_ce}, {}
+    if linear_shard_index(mesh, ("model",)) == 0:
+        n = batch["tokens"].shape[0] // mesh.size(0)
+        first = linear_shard_index(mesh, ("data",)) * n
+        rows = {k: v[first:first + n] for k, v in batch.items()}
+        model = built()
+        logits, ces["meshless"] = run(model, rows)
+        dists["mesh~meshless"] = dist_(mesh_logits, logits)
+        plant_fault(tag, model)
+        fault, ces["fault"] = run(model, rows)
+        dists["mesh~fault"] = dist_(mesh_logits, fault)
+        del model, logits, fault
+    del mesh_logits
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    return {"ce": ces, "dists": dists}
+
+
+def family_phase(rank, tmp, mesh, rules, kernels):
+    """Phase 9g on this rank: {tag: cell results and check}."""
+    out = {}
+    for tag, (cfg, _, launcher) in family_configs().items():
+        t0 = time.perf_counter()
+        out[tag] = family_cell(tag, cfg, launcher, rank, tmp, mesh, rules, kernels)
+        t1 = time.perf_counter()  # repro: noqa[R004] family_cell synchronizes at its end
+        out[tag]["check"] = family_check(tag, cfg, mesh, rules)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()  # repro: noqa[R004] synchronized on the line above
+        out[tag]["cell_s"], out[tag]["check_s"] = t2 - t0, t2 - t1
+    return out
+
+
+def family_report(ranks):
+    """Phase 9g's lines and assertions over every rank's results."""
+    for tag, (cfg, depth, launcher) in family_configs().items():
+        cells = [r["families"][tag] for r in ranks]
+        first = cells[0]
+        losses = [[m["loss"] for m in c["metrics"]] for c in cells]
+        if any(l != losses[0] for l in losses) or not (
+                len(losses[0]) == MESH_TRAIN_STEPS and np.isfinite(losses[0]).all()):
+            raise AssertionError(f"{tag}: losses by rank {losses}")
+        if launcher:
+            for r, c in enumerate(cells):
+                if c["checked"] != c["launches"] or not all(c["launches"].values()):
+                    raise AssertionError(f"{tag} rank {r}: checked launches "
+                                         f"{c['checked']}, counted {c['launches']}")
+        timed = max(c["step_ms"][-1] for c in cells)
+        m = first["metrics"][-1]
+        unit = "frames" if cfg.family == "encdec" else "tokens"
+        layers = (f"{cfg.encoder_layers}+{cfg.decoder_layers} of 24+24 layers"
+                  if cfg.family == "encdec" else f"{cfg.num_layers} of {depth} layers")
+        print(f"{tag}: {cfg.name} at its published widths (d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab_size}, {cfg.moe_num_experts} experts, mtp {cfg.mtp}) at "
+              f"{layers}, {cfg.param_dtype}, remat {cfg.remat}, on {MESH_RANKS} gloo ranks "
+              f"of the card, mesh {dict(zip(('data', 'model'), MESH_TRAIN_SHAPE))} under "
+              f"production_rules, {'the launcher with --dedup' if launcher else 'make_train_step'}"
+              f": {MESH_TRAIN_STEPS} steps, losses {losses[0]} (equal on every rank); "
+              f"last step's metrics {m}", flush=True)
+        print(f"{tag}: step {MESH_TRAIN_STEPS} step_ms={timed} (the slowest rank's; by "
+              f"rank {[c['step_ms'][-1] for c in cells]}) {unit}_per_s="
+              f"{first['tokens'] / (timed / 1e3)}; first step_ms="
+              f"{[c['step_ms'][0] for c in cells]}; each rank's max_memory_allocated="
+              f"{[c['peak'] for c in cells]}; parameters held a rank "
+              f"{[c['local_params'] for c in cells]}; cell_s="
+              f"{[round(c['cell_s'], 1) for c in cells]} (rank 0's: set-up and dedup "
+              f"{first['cell_s'] - first['check_s'] - sum(first['step_ms']) / 1e3:.1f}, "
+              f"steps {sum(first['step_ms']) / 1e3:.1f}, float32 check "
+              f"{first['check_s']:.1f}); census syncs (all, inside "
+              f"train.* ranges) on ranks 1-{MESH_RANKS - 1} from the first step to "
+              f"{'the launcher' + chr(39) + 's end' if launcher else 'the last'} "
+              f"{[c['census'] for c in cells[1:]]}", flush=True)
+        wall, busy, n_launch = first["profile"]
+        print(f"{tag}: the profiled first step on rank 0: wall_ms={wall * 1e3} "
+              f"device_busy_ms={busy * 1e3} device_idle_share={1 - busy / wall:.4f} "
+              f"launches={n_launch}", flush=True)
+        if launcher:
+            print(f"{tag}: dedup launches by rank (each held against its plain version) "
+                  f"{[c['launches'] for c in cells]}", flush=True)
+        checks = [c["check"] for c in cells]
+        dists = [d for c in checks for k, d in c["dists"].items() if k == "mesh~meshless"]
+        faults = [d for c in checks for k, d in c["dists"].items() if k == "mesh~fault"]
+        spread = max(abs(c["ce"]["mesh"] - c["ce"]["meshless"]) / c["ce"]["meshless"]
+                     for c in checks if "meshless" in c["ce"])
+        print(f"{tag} check: float32 at one layer, ce of each rank's rows {checks}; "
+              f"mesh~meshless largest {max(d[0] for d in dists)} (bound "
+              f"{FAMILY_LOGITS_RTOL}), median token's {max(d[1] for d in dists)} (bound "
+              f"{FAMILY_TOKEN_RTOL}), ce {spread} (bound {MESH_CE_RTOL}); planted fault "
+              f"({FAMILY_FAULTS[tag]}) least {min(d[0] for d in faults)} and "
+              f"{min(d[1] for d in faults)}", flush=True)
+        if (len(dists) != 2 or max(d[0] for d in dists) > FAMILY_LOGITS_RTOL
+                or max(d[1] for d in dists) > FAMILY_TOKEN_RTOL or spread > MESH_CE_RTOL):
+            raise AssertionError(f"{tag} check: {checks}")
+        if len(faults) != 2 or any(d[0] <= FAMILY_LOGITS_RTOL or d[1] <= FAMILY_TOKEN_RTOL
+                                   for d in faults):
+            raise AssertionError(f"{tag} check: the planted fault within the bound: {checks}")
+
+
+def training_mesh(olmoe=True):
+    """Phase 9f, MESH-OLMOE-TRAIN (``olmoe``), and phase 9g, every family,
+    on MESH_RANKS gloo ranks of the card, one spawn.
+    Returns rank 0's 9f dedup launches (each rank launches as many), or
+    None without ``olmoe``."""
     import pickle
     import torch.multiprocessing as mp
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(mesh_train_rank, args=(MESH_RANKS, f"file://{tmp}/init", tmp),
+        mp.start_processes(mesh_train_rank, args=(MESH_RANKS, f"file://{tmp}/init", tmp,
+                                                  olmoe),
                            nprocs=MESH_RANKS, start_method="spawn")
         ranks = []
         for r in range(MESH_RANKS):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
+    family_report(ranks)
+    print(f"phase 9g: cell_s by cell (rank 0) "
+          f"{ {t: round(c['cell_s'], 1) for t, c in ranks[0]['families'].items()} }",
+          flush=True)
+    if not olmoe:
+        print(f"phase 9g: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+        return None
     cfg = mesh_train_config()
     first = ranks[0]
     for r, got in enumerate(ranks):
@@ -3261,7 +3680,8 @@ def training_mesh():
     if len(faults) != 4 or any(v[0] <= MESH_LOGITS_RTOL or v[1] <= MESH_TOKEN_RTOL
                                for v in faults):
         raise AssertionError(f"mesh train check: a planted fault within the bound: {dists}")
-    print(f"phase 9f: phase_s={time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
+    print(f"phase 9f and 9g: phase_s="
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)  # repro: noqa[R004] phase wall time, printed only
     return first["launches"]
 
 
@@ -3285,6 +3705,11 @@ def census(tag, run):
     with SyncCensus() as c:
         run()
     torch.cuda.synchronize()
+    return census_checked(tag, c)
+
+
+def census_checked(tag, c):
+    """``census``'s lines and checks of a finished census ``c``."""
     for line in c.lines(tag, CENSUS_TOP):
         print(line, flush=True)
     if not c.armed or c.total == 0:
@@ -3459,6 +3884,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from repro_torch.kernels import _build
 
     card = subprocess.run(
@@ -3530,6 +3956,7 @@ def main() -> int:
         for key in ("compact_scatter_ms", "by_width"):
             if key in row:
                 print(f"kernel {row['name']}: {key}={row[key]}", flush=True)
+    print(f"chip_smoke: total_s={time.perf_counter() - t_start:.1f}", flush=True)  # repro: noqa[R004] the script's wall time, printed only
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ checkout's own ``src/``, with its kernels built first: ``8a`` serving,
 ``8b`` LM serving, ``8c`` MoE and MLA serving, ``8d`` the recurrent
 mixers' serving, ``8e`` the encoder-decoder and VLM serving, ``9a``
 training, ``9c`` MoE training, ``9d`` RWKV training, ``9e`` whisper
-training, ``9f`` MoE training on a mesh of four gloo ranks, ``10lm`` phase 10's census of the LM runs, ``10rec`` its
+training, ``9f`` MoE training on a mesh of four gloo ranks and, in the
+same spawn, ``9g``'s every family on that mesh (``9g`` alone runs 9g
+only), ``10lm`` phase 10's census of the LM runs, ``10rec`` its
 recurrent runs only, ``10enc`` its encoder-decoder and VLM runs only; by
 default 8a, 8b and 9a. ``NAME=INT`` sets one of the script's integer constants
 first (``MOE_TRAIN_LAYERS=14`` trains 14 layers in 9c). Run it for a parent and a change in turns within one call
@@ -39,6 +41,7 @@ def main():
               "9a": lambda: cs.training_full_width(kernels), "9c": cs.training_moe,
               "9d": cs.training_recurrent, "9e": cs.training_encdec,
               "9f": cs.training_mesh,
+              "9g": lambda: cs.training_mesh(olmoe=False),
               "10lm": lambda: cs.lm_census({}), "10rec": lambda: cs.recurrent_census({}),
               "10enc": lambda: cs.encdec_census({})}
     args = sys.argv[2:]

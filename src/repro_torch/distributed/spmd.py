@@ -14,7 +14,9 @@ gradient of one global loss, on these conventions:
   meet: ``enter`` (forward identity, backward all-reduce) where a
   replicated tensor feeds per-rank work, ``reduce`` (forward all-reduce,
   backward identity) where per-rank parts sum into a replicated tensor
-  (Megatron's f and g);
+  (Megatron's f and g), and ``psum`` (both all-reduces) where per-rank
+  parts sum into a tensor that each rank then uses for its own part of
+  the work (Mamba's B, C and dt inputs, RWKV's output norm);
 - ``gather`` joins per-rank blocks along a tensor dim: its backward
   takes this rank's block of the gradient (``grad="slice"``, the tensor
   is used alike after the gather) or reduce-scatters it (``"sum"``: an
@@ -22,13 +24,19 @@ gradient of one global loss, on these conventions:
 - ``weight`` is a parameter as its layer uses it: its fsdp block gathered
   over the batch dims (backward reduce-scatter), its gradient summed over
   the batch dims it is not split over, and, for a layer whose ranks of a
-  non-batch dim do different work with it (``split``), over those too.
+  non-batch dim do different work with it (``split``), over those too;
+  ``part`` is this rank's slice of a parameter replicated by the rules
+  that its layer reads only in part (a bias or a per-channel vector of
+  a layer split over "model"), its gradient summed alike.
 
 These are the reference's ``shard_map`` semantics for an input replicated
 over a mesh axis: its cotangent is summed over the axes its spec does not
 mention. All collectives are ``torch.distributed``'s own (gloo takes
 all of them for CUDA tensors; DTensor's functional all-gather does not,
-``sharding``'s docstring). Reductions of 16-bit floats run in float32.
+``sharding``'s docstring). Reductions of 16-bit floats run in float32,
+but for a sum over one mesh dim of 2 ranks, which they send in their
+own type: gloo adds two of them in float32 and rounds once, as the
+float32 sum then a cast does (bit-equal), with half the bytes.
 """
 from __future__ import annotations
 
@@ -44,14 +52,22 @@ from .sharding import (NamedSharding, active_rules, axes_of, axis_size,
 Axes = Tuple[str, ...]
 
 
+def _sum_type(x: torch.Tensor, mesh, axes: Axes) -> torch.dtype:
+    """The type ``x`` is summed in over ``axes`` (module docstring)."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x.dtype
+    pair = len(axes) == 1 and mesh.size(mesh.mesh_dim_names.index(axes[0])) == 2
+    return x.dtype if pair else torch.float32
+
+
 def _all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     if not axes:
         return x
-    low = x.dtype in (torch.bfloat16, torch.float16)
-    y = x.to(torch.float32) if low else x.clone()
+    work = _sum_type(x, mesh, axes)
+    y = x.to(work) if work != x.dtype else x.clone()
     for a in axes:
         dist.all_reduce(y, group=mesh.get_group(a))  # repro: noqa[R001] gloo stages CUDA tensors through host memory
-    return y.to(x.dtype) if low else y
+    return y.to(x.dtype)
 
 
 def _all_gather(x: torch.Tensor, dim: int, mesh, axes: Axes) -> torch.Tensor:
@@ -67,16 +83,28 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axes: Axes) -> torch.Tensor:
     return x
 
 
+# elements a reduce-scatter sends at once: a gradient is summed a slab of
+# this rank's rows at a time, not as one copy (in float32, where it is
+# summed in float32) of the whole gathered gradient (1.85 GB for
+# deepseek-v3's head block)
+SCATTER_SLAB = 1 << 26
+
+
 def _reduce_scatter(x: torch.Tensor, dim: int, mesh, axes: Axes) -> torch.Tensor:
     """The adjoint of ``_all_gather``: summed over ``axes``, this rank's
     block of ``dim`` kept (the outermost dim first)."""
     for a in axes:
         n = mesh.size(mesh.mesh_dim_names.index(a))
-        low = x.dtype in (torch.bfloat16, torch.float16)
-        src = x.movedim(dim, 0).to(torch.float32 if low else x.dtype).contiguous()
-        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        dist.reduce_scatter_tensor(out, src, group=mesh.get_group(a))  # repro: noqa[R001] gloo stages CUDA tensors through host memory
+        work = _sum_type(x, mesh, (a,))
+        src = x.movedim(dim, 0)
+        rows, tail = src.shape[0] // n, tuple(src.shape[1:])
+        blocks = src.reshape((n, rows) + tail)
+        out = torch.empty((rows,) + tail, dtype=work, device=src.device)
+        step = max(1, SCATTER_SLAB // max(1, n * blocks[0, 0].numel()))
+        for r0 in range(0, rows, step):
+            part = blocks[:, r0:r0 + step].to(work).contiguous()
+            dist.reduce_scatter_tensor(out[r0:r0 + step],  # repro: noqa[R001] gloo stages CUDA tensors through host memory
+                                       part.reshape((-1,) + tail), group=mesh.get_group(a))
         x = out.to(x.dtype).movedim(0, dim)
     return x
 
@@ -156,6 +184,13 @@ def reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     return _Reduce.apply(x, mesh, tuple(axes)) if axes else x
 
 
+def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """Forward all-reduce (sum) over ``axes`` and backward all-reduce:
+    per-rank parts summed into a tensor that each rank then uses for its
+    own part of the work (``enter(reduce(x))``)."""
+    return enter(reduce(x, mesh, axes), mesh, axes)
+
+
 def gather(x: torch.Tensor, dim: int, mesh, axes: Axes, grad: str = "slice") -> torch.Tensor:
     """Blocks joined along ``dim`` over ``axes``; ``grad`` "slice" or
     "sum" (module docstring)."""
@@ -205,6 +240,16 @@ def weight(p: torch.Tensor, split: bool = False) -> torch.Tensor:
         w = enter(w, mesh, tuple(a for a in mesh.mesh_dim_names
                                  if a not in batch and a not in used))
     return w
+
+
+def part(p: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
+    """This rank's block along ``dim`` over ``axes`` (a layer's "model"
+    dims) of ``p`` as ``weight(p, split=True)`` gives it: a parameter the
+    rules replicate but whose layer reads only this rank's channels of
+    it. Without ``axes``, ``weight(p)``."""
+    if not axes:
+        return weight(p)
+    return block(weight(p, split=True), dim, active_rules().mesh, axes)
 
 
 def batch_rows(x: torch.Tensor) -> torch.Tensor:

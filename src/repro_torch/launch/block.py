@@ -37,7 +37,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dryrun", action="store_true",
                     help="lower one iteration on the production mesh "
-                         "(not ported: ROADMAP A10b-6)")
+                         "(not ported: ROADMAP A10b-6c)")
     ap.add_argument("--entities", type=int, default=2000)
     ap.add_argument("--max-block-size", type=int, default=100)
     ap.add_argument("--ckpt-dir", default="",
@@ -54,7 +54,7 @@ def main(argv=None):
     if args.dryrun:
         raise NotImplementedError(
             "--dryrun needs the port's lowering and cost analysis (launch/"
-            "dryrun.py, hlo_analysis.py), which wait for ROADMAP A10b-6")
+            "dryrun.py, hlo_analysis.py), which wait for ROADMAP A10b-6c")
 
     cfg = HDBConfig(max_block_size=args.max_block_size)
     dist_kw = {}

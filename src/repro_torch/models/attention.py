@@ -18,7 +18,7 @@ Under sharding rules each rank attends with its block of the heads (the
 query heads, ``wk``/``wv`` its KV heads or, where they do not divide
 over the dim, all of them (the GQA repeat then keeps this rank's heads),
 and the output projection's parts are summed over the dim. Caches are
-not sharded (serving on the mesh is the dry run's, ROADMAP A10b-6).
+not sharded (serving on the mesh is ROADMAP A10b-6b).
 """
 from __future__ import annotations
 
@@ -127,7 +127,7 @@ class Attention(nn.Module):
         mesh = active_rules().mesh if tp else None
         if tp and cache is not None:
             raise NotImplementedError("cached attention on the mesh (serving) "
-                                      "waits for ROADMAP A10b-6")
+                                      "waits for ROADMAP A10b-6b")
         wq, wo = spmd.weight(self.wq).to(c), spmd.weight(self.wo).to(c)
         wk = spmd.weight(self.wk, split=bool(tp)).to(c)
         wv = spmd.weight(self.wv, split=bool(tp)).to(c)

@@ -16,6 +16,16 @@ is not ``"none"``, rematerialises each layer whole (the reference's plain
 ``jax.checkpoint`` of the scan body, for ``"selective"`` too). The decoder
 caches are one attention cache a decoder layer; a step reads every
 layer's write position from layer 0's.
+
+Under sharding rules (training on the mesh) the self-attention and the
+GELU MLP split their heads and ffn columns over "model" as the decoder
+stack's do, the embedding and the tied head their vocab rows. Cross
+-attention's parameters (under ``cross``) match no pattern of the
+reference's table and are replicated: every rank of the dim attends
+with every head, over the encoder output it computed alike. The norms,
+``dec_pos`` and the layer norms' biases are replicated too. The
+recompute of a remat layer re-enters the rules, which autograd's own
+thread (the card's) does not see.
 """
 from __future__ import annotations
 
@@ -24,9 +34,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 from torch import nn
-from torch.utils import checkpoint as ckpt
 
-from . import attention, layers
+from ..distributed import spmd
+from . import attention, layers, transformer
 from .config import ModelConfig
 
 # rows of the learned decoder positions (the reference's 1 << 16)
@@ -53,6 +63,10 @@ def sinusoid_table(length: int, channels: int, device: torch.device,
     return table.to(device, non_blocking=True).to(dtype)
 
 
+def _layer_norm(x, weight, bias, eps: float):
+    return layers.layer_norm(x, spmd.weight(weight), spmd.weight(bias), eps)
+
+
 def _ones(cfg: ModelConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=device))
 
@@ -73,10 +87,10 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eps = self.cfg.norm_eps
-        y, _ = self.attn(layers.layer_norm(x, self.ln1, self.ln1_b, eps),
+        y, _ = self.attn(_layer_norm(x, self.ln1, self.ln1_b, eps),
                          causal=False, use_rope=False)
         x = x + y
-        return x + self.mlp(layers.layer_norm(x, self.ln2, self.ln2_b, eps))
+        return x + self.mlp(_layer_norm(x, self.ln2, self.ln2_b, eps))
 
 
 class DecoderLayer(EncoderLayer):
@@ -92,13 +106,13 @@ class DecoderLayer(EncoderLayer):
 
     def forward(self, x: torch.Tensor, enc_out: torch.Tensor, cache=None):
         eps = self.cfg.norm_eps
-        y, cache = self.attn(layers.layer_norm(x, self.ln1, self.ln1_b, eps),
+        y, cache = self.attn(_layer_norm(x, self.ln1, self.ln1_b, eps),
                              cache=cache, causal=True, use_rope=False)
         x = x + y
-        y, _ = self.cross(layers.layer_norm(x, self.ln_cross, self.ln_cross_b, eps),
+        y, _ = self.cross(_layer_norm(x, self.ln_cross, self.ln_cross_b, eps),
                           causal=False, use_rope=False, kv_x=enc_out)
         x = x + y
-        return x + self.mlp(layers.layer_norm(x, self.ln2, self.ln2_b, eps)), cache
+        return x + self.mlp(_layer_norm(x, self.ln2, self.ln2_b, eps)), cache
 
 
 class EncDec(nn.Module):
@@ -131,9 +145,9 @@ class EncDec(nn.Module):
                 and any(p.requires_grad for p in self.parameters()))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.layer_norm(x, self.dec_ln, self.dec_ln_b, self.cfg.norm_eps)
+        x = _layer_norm(x, self.dec_ln, self.dec_ln_b, self.cfg.norm_eps)
         if self.lm_head is None:
-            return x @ self.embed.table.to(self.cfg.cdtype).T
+            return layers.vocab_logits(x, self.embed.table, 0, self.cfg)
         return self.lm_head(x)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -144,17 +158,17 @@ class EncDec(nn.Module):
                                                    frames.device, cfg.cdtype)[None]
         remat = self._remat()
         for layer in self.enc:
-            x = ckpt.checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-        return layers.layer_norm(x, self.enc_ln, self.enc_ln_b, cfg.norm_eps)
+            x = transformer._remat(layer, "full", x) if remat else layer(x)
+        return _layer_norm(x, self.enc_ln, self.enc_ln_b, cfg.norm_eps)
 
     def decode_train(self, tokens: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens, teacher-forced from position 0, over ``enc_out``
         -> (B, S, V) logits."""
         s = tokens.shape[1]
-        x = self.embed(tokens) + self.dec_pos[:s].to(self.cfg.cdtype)[None]
+        x = self.embed(tokens) + spmd.weight(self.dec_pos)[:s].to(self.cfg.cdtype)[None]
         remat = self._remat()
         for layer in self.dec:
-            x = (ckpt.checkpoint(layer, x, enc_out, use_reentrant=False)[0] if remat
+            x = (transformer._remat(layer, "full", x, enc_out)[0] if remat
                  else layer(x, enc_out)[0])
         return self._head(x)
 

@@ -12,8 +12,9 @@ sharded by ``shard_params``) each layer works on this rank's rows and
 its block of each weight, through ``distributed.spmd`` (the reference's
 ``lshard`` sites): the embedding looks up its vocab rows and sums over
 the "model" dim (tokens outside them give zeros), the head gives this
-rank's vocab columns and gathers them, an MLP takes its ffn columns and
-sums its down projection over the dim.
+rank's vocab columns and gathers them, an MLP takes its ffn columns (and
+the GELU MLP its slice of the replicated ``b_up``) and sums its down
+projection over the dim.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from torch import nn
 
 from ..core.routing import linear_shard_index
 from ..distributed import spmd
-from ..distributed.sharding import active_rules
+from ..distributed.sharding import active_rules, axis_size
 from .config import ModelConfig
 
 
@@ -50,11 +51,18 @@ def zeros_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """Float32 RMS norm scaled by ``1 + weight``, cast back to x's dtype."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, mesh=None,
+             tp: spmd.Axes = ()) -> torch.Tensor:
+    """Float32 RMS norm scaled by ``1 + weight``, cast back to x's dtype.
+    With ``tp``, x's last dim holds this rank's channels of a dim split
+    over those mesh dims: each rank's sum of squares is summed over them."""
     dtype = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if tp:
+        var = spmd.psum(torch.sum(x * x, dim=-1, keepdim=True), mesh, tp) / (
+            x.shape[-1] * axis_size(mesh, tp))
+    else:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.to(torch.float32))).to(dtype)
 
@@ -171,6 +179,14 @@ class GeluMLP(nn.Module):
         self.b_down = zeros_param((d,), cfg.pdtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under rules the biases are replicated (no pattern names them):
+        each rank adds its ffn slice of ``b_up`` before the GELU, and
+        ``b_down`` once, after the down projection's sum."""
         c = self.cfg.cdtype
-        h = nn.functional.gelu(x @ self.w_up.to(c) + self.b_up.to(c), approximate="tanh")
-        return h @ self.w_down.to(c) + self.b_down.to(c)
+        tp = spmd.tp_axes(self.w_up, 1)
+        mesh = active_rules().mesh if tp else None
+        x = spmd.enter(x, mesh, tp)
+        h = nn.functional.gelu(x @ spmd.weight(self.w_up).to(c)
+                               + spmd.part(self.b_up, 0, tp).to(c), approximate="tanh")
+        y = spmd.reduce(h @ spmd.weight(self.w_down).to(c), mesh, tp)
+        return y + spmd.weight(self.b_down).to(c)

@@ -18,6 +18,17 @@ prompt longer than one token does.
 
 A cache is ``{"h": (B,Din,N) float32, "conv": (B,K-1,Din)}``; a step with
 a cache replaces both entries and returns the same dict.
+
+Under sharding rules the inner dim Din is split over the "ffn" dim
+(the reference's ``lshard`` of ``u`` and ``y``): ``w_in``, ``w_z``,
+``conv`` and ``a_log`` hold this rank's channels, and so do ``w_b``,
+``w_c`` and ``w_dt``, whose products contract over Din: each rank's B, C
+and dt input are partial sums, summed over the dim (one ``spmd.psum``)
+before the scan. ``w_dt_out``, ``dt_bias`` and ``d_skip`` are
+replicated (no pattern of the reference's names them at their rank) and
+read in this rank's channels (``spmd.part``). The conv, the softplus,
+the scan and the gate stay local; ``w_out``'s parts are summed. The
+cached step (serving) does not run on the mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..distributed import spmd
+from ..distributed.sharding import active_rules
 from .config import ModelConfig
 from .layers import dense_param
 
@@ -120,15 +133,21 @@ class Mamba(nn.Module):
         self.d_skip = nn.Parameter(torch.ones((din,), dtype=pd, device=device))
         self.w_out = dense_param((din, d), pd, device, generator)
 
-    def _ssm_params(self, u: torch.Tensor):
+    def _ssm_params(self, u: torch.Tensor, mesh=None, tp=()):
         """(da, db (B,S,Din,N) float32, cmat (B,S,N)) from the post-conv
-        activations u (B,S,Din)."""
+        activations u (B,S,Din) (under rules, this rank's channels of
+        each)."""
         c = self.cfg.cdtype
-        bmat = u @ self.w_b.to(c)
-        cmat = u @ self.w_c.to(c)
-        dt = (u @ self.w_dt.to(c)) @ self.w_dt_out.to(c)
-        dt = softplus(dt.to(torch.float32) + self.dt_bias.to(torch.float32))
-        a = -torch.exp(self.a_log.to(torch.float32))
+        bmat = u @ spmd.weight(self.w_b).to(c)
+        cmat = u @ spmd.weight(self.w_c).to(c)
+        dt = u @ spmd.weight(self.w_dt).to(c)
+        if tp:
+            n = bmat.shape[-1]
+            both = spmd.psum(torch.cat([bmat, cmat, dt], dim=-1), mesh, tp)
+            bmat, cmat, dt = both[..., :n], both[..., n:2 * n], both[..., 2 * n:]
+        dt = dt @ spmd.part(self.w_dt_out, 1, tp).to(c)
+        dt = softplus(dt.to(torch.float32) + spmd.part(self.dt_bias, 0, tp).to(torch.float32))
+        a = -torch.exp(spmd.weight(self.a_log).to(torch.float32))
         da = torch.exp(dt[..., None] * a)
         db = dt[..., None] * bmat[:, :, None, :]
         return da, db, cmat
@@ -140,9 +159,16 @@ class Mamba(nn.Module):
         cfg = self.cfg
         b, s, d = x.shape
         c = cfg.cdtype
-        u = x @ self.w_in.to(c)
-        z = x @ self.w_z.to(c)
-        conv_w = self.conv.to(c)
+        tp = spmd.tp_axes(self.w_in, 1)
+        mesh = active_rules().mesh if tp else None
+        if tp and cache is not None:
+            raise NotImplementedError("cached Mamba on the mesh (serving) waits for "
+                                      "ROADMAP A10b-6b")
+        x = spmd.enter(x, mesh, tp)
+        u = x @ spmd.weight(self.w_in).to(c)
+        z = x @ spmd.weight(self.w_z).to(c)
+        conv_w = spmd.weight(self.conv).to(c)
+        d_skip = spmd.part(self.d_skip, 0, tp).to(c)
         if cache is not None:
             u, conv_state = causal_conv(u, conv_w, cache["conv"])
             u = nn.functional.silu(u)
@@ -151,7 +177,7 @@ class Mamba(nn.Module):
             h = cache["h"] * da[:, 0] + db[:, 0] * u[:, 0, :, None].to(torch.float32)
             y = torch.einsum("bdn,bn->bd", h, cmat[:, 0].to(torch.float32))[:, None]
             cache["h"], cache["conv"] = h, conv_state
-            y = y.to(x.dtype) + u * self.d_skip.to(c)
+            y = y.to(x.dtype) + u * d_skip
         else:
             u, _ = causal_conv(u, conv_w)
             u = nn.functional.silu(u)
@@ -163,16 +189,16 @@ class Mamba(nn.Module):
             ys = []
             for i in range(s // chunk):
                 uc = u[:, i * chunk:(i + 1) * chunk]
-                da, db, cmat = self._ssm_params(uc)
+                da, db, cmat = self._ssm_params(uc, mesh, tp)
                 bx = db * uc[..., None].to(torch.float32)
                 a_cum, b_scan = associative_scan(da, bx, dim=1)
                 hs = b_scan + a_cum * h[:, None]            # the carry folded in
                 ys.append(torch.einsum("bsdn,bsn->bsd", hs, cmat.to(torch.float32))
                           .to(x.dtype))
                 h = hs[:, -1]
-            y = torch.cat(ys, dim=1) + u * self.d_skip.to(c)
+            y = torch.cat(ys, dim=1) + u * d_skip
         y = y * nn.functional.silu(z)
-        return y @ self.w_out.to(c), cache
+        return spmd.reduce(y @ spmd.weight(self.w_out).to(c), mesh, tp), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device, dtype=None) -> Dict:

@@ -20,6 +20,14 @@ int}``, written in place as the attention's cache is. Quirk of the
 reference, mirrored (ROADMAP Queue C, LM fault 5): with no positions the
 new keys' rope channel is rotated at ``arange(s)`` (0 in a decode step)
 while the queries are rotated at ``pos + arange(s)``.
+
+Under sharding rules (the reference's ``lshard`` of the heads) ``w_uq``,
+``w_ukv`` and ``wo`` hold this rank's heads, and ``w_dq``, ``w_dkv`` and
+``w_kr`` are whole on every rank of the "model" dim (FSDP on "data"
+only): each rank computes the query and KV latents and the shared rope
+key alike, splits the heads after them (``spmd.enter``: their gradients,
+the rope key's over every head, sum over the dim) and sums the output
+projection's parts. The cached paths (serving) do not run on the mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..distributed import spmd
+from ..distributed.sharding import active_rules
 from .attention import NEG_INF, _chunked_attend
 from .config import ModelConfig
 from .layers import apply_rope, dense_param, rms_norm, zeros_param
@@ -55,11 +65,13 @@ class MLA(nn.Module):
         self.w_ukv = dense_param((kvr, h, dn + dv), pd, device, generator)
         self.wo = dense_param((h, dv, d), pd, device, generator)
 
-    def _project_q(self, x, positions):
+    def _project_q(self, x, positions, mesh=None, tp=()):
         cfg = self.cfg
         c, dn = cfg.cdtype, cfg.nope_head_dim
-        cq = rms_norm(x @ self.w_dq.to(c), self.q_norm, cfg.norm_eps)
-        q = torch.einsum("bsr,rhk->bshk", cq, self.w_uq.to(c))
+        cq = rms_norm(x @ spmd.weight(self.w_dq).to(c), spmd.weight(self.q_norm),
+                      cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", spmd.enter(cq, mesh, tp),
+                         spmd.weight(self.w_uq).to(c))
         return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
@@ -69,17 +81,25 @@ class MLA(nn.Module):
         b, s, _ = x.shape
         h, c = cfg.num_heads, cfg.cdtype
         dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+        tp = spmd.tp_axes(self.w_uq, 1)
+        mesh = active_rules().mesh if tp else None
+        if tp and cache is not None:
+            raise NotImplementedError("cached MLA on the mesh (serving) waits for "
+                                      "ROADMAP A10b-6b")
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
         scale = 1.0 / math.sqrt(dn + dr)
 
-        c_kv = rms_norm(x @ self.w_dkv.to(c), self.kv_norm, cfg.norm_eps)   # (B,S,kvr)
-        k_rope = (x @ self.w_kr.to(c))[:, :, None, :]                       # (B,S,1,dr)
+        c_kv = rms_norm(x @ spmd.weight(self.w_dkv).to(c), spmd.weight(self.kv_norm),
+                        cfg.norm_eps)                                      # (B,S,kvr)
+        k_rope = (x @ spmd.weight(self.w_kr).to(c))[:, :, None, :]          # (B,S,1,dr)
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
-        w_ukv = self.w_ukv.to(c)
+        w_ukv = spmd.weight(self.w_ukv).to(c)
 
         if cache is None:
-            q_nope, q_rope = self._project_q(x, positions)
+            # this rank's heads from here on
+            c_kv, k_rope = spmd.enter(c_kv, mesh, tp), spmd.enter(k_rope, mesh, tp)
+            q_nope, q_rope = self._project_q(x, positions, mesh, tp)
             kv = torch.einsum("bsr,rhk->bshk", c_kv, w_ukv)
             k_nope, v = kv[..., :dn], kv[..., dn:]
             scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
@@ -120,8 +140,8 @@ class MLA(nn.Module):
                 probs = torch.softmax(scores, dim=-1).to(x.dtype)
                 out_lat = torch.einsum("bhqs,bsr->bqhr", probs, cc)
                 out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_ukv[..., dn:])
-        y = torch.einsum("bshd,hdk->bsk", out, self.wo.to(c))
-        return y, cache
+        y = torch.einsum("bshd,hdk->bsk", out, spmd.weight(self.wo).to(c))
+        return spmd.reduce(y, mesh, tp), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,

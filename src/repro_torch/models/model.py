@@ -35,10 +35,12 @@ On a mesh (``shard_model``, then ``distributed.sharding.use_rules``),
 rank's rows of it and run the layers on this rank's parameter blocks;
 the layers make the collectives the reference's ``lshard`` constraints
 imply (``distributed.spmd``), and ``loss`` returns the global loss and
-metrics on every rank. ``apply``'s logits are this rank's rows. The
-decoder-only families with attention (dense, MoE, vlm) run there; MLA,
-Mamba, RWKV, MTP, the encoder-decoder and serving on the mesh wait for
-ROADMAP A10b-6.
+metrics on every rank. ``apply``'s logits are this rank's rows. Every
+family trains there: attention, MLA, Mamba and RWKV mixers, MLP and MoE
+FFNs, MTP (its projection replicated, its logits through the same
+vocab-parallel head, its cross-entropy averaged as ``ce`` is) and the
+encoder-decoder. Serving on the mesh (``prefill``, ``decode_step``)
+waits for ROADMAP A10b-6b.
 """
 from __future__ import annotations
 
@@ -80,10 +82,12 @@ class Model(nn.Module):
             self.mtp_proj = layers.dense_param((2 * cfg.d_model, cfg.d_model),
                                                cfg.pdtype, device, generator)
 
-    def _backbone(self, tokens, extra=None, caches=None, positions=None):
+    def _backbone(self, tokens, extra=None, caches=None, positions=None, x=None):
         """``extra`` (the vlm's patch embeddings) is cast to the compute
-        dtype and put ahead of the token embeddings."""
-        x = self.embed(spmd.batch_rows(tokens))
+        dtype and put ahead of the token embeddings; ``x``, when given, is
+        those embeddings already looked up."""
+        if x is None:
+            x = self.embed(spmd.batch_rows(tokens))
         if extra is not None:
             x = torch.cat([spmd.batch_rows(extra).to(self.cfg.cdtype), x], dim=1)
         x, new_caches, aux, dropped = self.stack(x, positions=positions, caches=caches)
@@ -107,15 +111,24 @@ class Model(nn.Module):
         are cut before the head. (This name shadows ``nn.Module.apply(fn)``,
         which the port does not use.)"""
         extra = batch.get("patches")
-        x, _, aux, dropped = self._backbone(batch["tokens"], extra)
+        if not self.cfg.mtp:
+            x, _, aux, dropped = self._backbone(batch["tokens"], extra)
+            if extra is not None:
+                x = x[:, extra.shape[1]:]
+            return self._head(x), {"moe_aux": aux, "moe_dropped": dropped}
+        # the tokens and the targets looked up at once, and the two heads
+        # taken at once: on a mesh the table and the head are gathered
+        # once a step, not twice
+        rows = spmd.batch_rows(batch["tokens"])
+        emb, emb_next = self.embed(torch.cat([rows, spmd.batch_rows(batch["targets"])])
+                                   ).split(rows.shape[0])
+        x, _, aux, dropped = self._backbone(None, extra, x=emb)
         if extra is not None:
             x = x[:, extra.shape[1]:]
-        out = {"moe_aux": aux, "moe_dropped": dropped}
-        if self.cfg.mtp:
-            fused = (torch.cat([x, self.embed(batch["targets"])], dim=-1)
-                     @ self.mtp_proj.to(self.cfg.cdtype))
-            out["mtp_logits"] = self._head(self.mtp(fused)[0])
-        return self._head(x), out
+        fused = (torch.cat([x, emb_next], dim=-1)
+                 @ spmd.weight(self.mtp_proj).to(self.cfg.cdtype))
+        logits, mtp_logits = self._head(torch.cat([x, self.mtp(fused)[0]])).split(x.shape[0])
+        return logits, {"moe_aux": aux, "moe_dropped": dropped, "mtp_logits": mtp_logits}
 
     def loss(self, batch: Dict) -> tuple:
         """Cross-entropy plus the reference's z-loss (1e-4 mean lse^2), 1e-2
@@ -129,8 +142,9 @@ class Model(nn.Module):
         metrics = {"ce": ce, "moe_aux": aux["moe_aux"],
                    "moe_dropped": aux["moe_dropped"]}
         if self.cfg.mtp:
-            t2 = torch.roll(batch["targets"], -1, dims=1)
+            t2 = torch.roll(spmd.batch_rows(batch["targets"]), -1, dims=1)
             mtp_ce, _ = cross_entropy(aux["mtp_logits"][:, :-1], t2[:, :-1])
+            mtp_ce = spmd.batch_mean(mtp_ce)
             total = total + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         return total, metrics
@@ -174,19 +188,13 @@ class Model(nn.Module):
 def _no_mesh(what: str):
     if sharding.active_rules() is not None:
         raise NotImplementedError(f"{what} on the mesh (serving) waits for "
-                                  f"ROADMAP A10b-6")
+                                  f"ROADMAP A10b-6b")
 
 
 def shard_model(model, rules: sharding.ShardingRules):
     """Keep this rank's block of each of ``model``'s parameters
     (``sharding.shard_params``; every rank built the same weights) for
-    runs under ``use_rules(rules)``; returns the specs. Refuses the
-    layers the mesh path does not run yet."""
-    if isinstance(model, EncDecModel) or model.cfg.mtp or any(
-            mixer != "attn" for mixer, _ in model.stack.specs):
-        raise NotImplementedError(
-            f"{model.cfg.name}: the mesh runs the attention, MLP and MoE layers; "
-            f"MLA, Mamba, RWKV, MTP and the encoder-decoder wait for ROADMAP A10b-6")
+    runs under ``use_rules(rules)``; returns the specs."""
     return sharding.shard_params(model, rules)
 
 
@@ -207,14 +215,17 @@ class EncDecModel(encdec.EncDec):
         return name.split(".")[0] in ("enc", "dec")
 
     def apply(self, batch: Dict) -> tuple:
-        logits = self.decode_train(batch["tokens"], self.encode(batch["frames"]))
+        """Under rules, on this rank's rows of the frames and tokens."""
+        logits = self.decode_train(spmd.batch_rows(batch["tokens"]),
+                                   self.encode(spmd.batch_rows(batch["frames"])))
         return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=self.device),
                         "moe_dropped": torch.zeros((), dtype=torch.int32,
                                                    device=self.device)}
 
     def loss(self, batch: Dict) -> tuple:
         """(ce, {"ce": ce}): no z-loss and no aux term."""
-        ce, _ = cross_entropy(self.apply(batch)[0], batch["targets"])
+        ce, _ = cross_entropy(self.apply(batch)[0], spmd.batch_rows(batch["targets"]))
+        ce = spmd.batch_mean(ce)
         return ce, {"ce": ce}
 
     def init_caches(self, batch: int, max_len: int, device=None) -> List:
@@ -222,10 +233,12 @@ class EncDecModel(encdec.EncDec):
 
     @torch.no_grad()
     def prefill(self, batch: Dict, caches: List) -> tuple:
+        _no_mesh("prefill")
         return self.decode(batch["tokens"][:, -1:], self.encode(batch["frames"]), caches)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches: List, batch=None) -> tuple:
+        _no_mesh("decode_step")
         return self.decode(token, batch["enc_out"], caches)
 
 

@@ -207,8 +207,21 @@ class MoE(nn.Module):
             g = xs @ spmd.weight(self.shared_gate).to(c)
             u = xs @ spmd.weight(self.shared_up).to(c)
             out = out + spmd.reduce((nn.functional.silu(g) * u)
-                                    @ spmd.weight(self.shared_down).to(c), mesh, tp)
+                                    @ self._shared_down(rules, mesh, tp).to(c), mesh, tp)
         return out, aux, dropped
+
+    def _shared_down(self, rules, mesh, tp):
+        """The rows of ``shared_down`` that this rank's ffn columns meet.
+        The reference's first matching pattern, ``moe/shared_.*``, gives
+        it ``("fsdp", "ffn")``: its d_model columns on the "model" dim,
+        not its rows; they are gathered (the gradient reduce-scattered
+        where the ranks use different rows of it) and the rows cut."""
+        down_tp = spmd.tp_axes(self.shared_down, 1)
+        if not down_tp:
+            return spmd.part(self.shared_down, 0, tp)
+        w = spmd.gather(spmd.weight(self.shared_down), 1, rules.mesh, down_tp,
+                        grad="sum" if tp else "slice")
+        return spmd.block(w, 0, mesh, tp)
 
     def _expert_parallel(self, x, rules, ep, wg, wu, wd):
         """``moe_apply``'s sharded branch on this rank's rows ``x``."""
@@ -223,7 +236,7 @@ class MoE(nn.Module):
         ff_axis = rules.axis("moe_ff")
         if ff_axis is not None and cfg.moe_d_ff % axis_size(mesh, ff_axis) == 0:
             raise NotImplementedError("the expert-internal ff split (moe_ff, "
-                                      "serving TP) waits for ROADMAP A10b-6")
+                                      "serving TP) waits for ROADMAP A10b-6b")
         e_local, me = e // n_ep, linear_shard_index(mesh, ep)
         t = b * s  # one data shard's tokens (all, where batch_rows replicated them)
         router = spmd.weight(self.router, split=True)

@@ -19,6 +19,16 @@ in float32, the decay ``exp(-exp(.))`` in float32, the state in float32,
 the output norm and gate back in the compute dtype. A cache is
 ``{"state": (B,H,D,D) float32, "x_prev": (B,d)}``; a step with a cache
 replaces both entries and returns the same dict.
+
+Under sharding rules ``w_r``, ``w_k``, ``w_v`` and ``w_g`` hold this
+rank's columns on the "ffn" dim, a block of whole heads, and ``w_o`` the
+matching rows, whose parts are summed. The shift mixes ``mu`` and the
+decay LoRA's ``w_decay_lora_a`` are replicated and read whole, and
+``w_decay_lora_b``, ``decay_base``, ``bonus`` and ``ln_x`` are
+replicated and read in this rank's channels (``spmd.part``): each rank's
+gradient of them is its part, summed over the dim. The output norm runs
+over every head: its sum of squares is summed over the dim
+(``spmd.psum``). The cached step (serving) does not run on the mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..distributed import spmd
+from ..distributed.sharding import active_rules
 from .config import ModelConfig
 from .layers import dense_param, rms_norm
 
@@ -118,20 +130,33 @@ class RWKV(nn.Module):
         ignored (the recurrence carries the order)."""
         cfg = self.cfg
         b, s, d = x.shape
-        h, hd, c = _heads(cfg), cfg.rwkv_head_dim, cfg.cdtype
+        hd, c = cfg.rwkv_head_dim, cfg.cdtype
+        tp = spmd.tp_axes(self.w_r, 1)
+        mesh = active_rules().mesh if tp else None
+        if tp and cache is not None:
+            raise NotImplementedError("cached RWKV on the mesh (serving) waits for "
+                                      "ROADMAP A10b-6b")
+        w_r, w_k, w_v, w_g = (spmd.weight(w).to(c)
+                              for w in (self.w_r, self.w_k, self.w_v, self.w_g))
+        dl = w_r.shape[1]   # this rank's channels
+        if dl % hd:
+            raise ValueError(f"{dl} channels a rank do not hold whole heads of {hd}")
+        h = dl // hd
+        x = spmd.enter(x, mesh, tp)
         last = cache["x_prev"] if cache is not None else x.new_zeros((b, d))
         xp = shift(x, last)
-        mu = self.mu.to(c)
+        mu = spmd.weight(self.mu, split=bool(tp)).to(c)
         xr, xk, xv, xw, xg = (mix(x, xp, mu[i]) for i in range(5))
-        r = (xr @ self.w_r.to(c)).reshape(b, s, h, hd)
-        k = (xk @ self.w_k.to(c)).reshape(b, s, h, hd)
-        v = (xv @ self.w_v.to(c)).reshape(b, s, h, hd)
-        g = xg @ self.w_g.to(c)
-        decay = (xw @ self.w_decay_lora_a.to(c)) @ self.w_decay_lora_b.to(c)
+        r = (xr @ w_r).reshape(b, s, h, hd)
+        k = (xk @ w_k).reshape(b, s, h, hd)
+        v = (xv @ w_v).reshape(b, s, h, hd)
+        g = xg @ w_g
+        decay = ((xw @ spmd.weight(self.w_decay_lora_a, split=bool(tp)).to(c))
+                 @ spmd.part(self.w_decay_lora_b, 1, tp).to(c))
         w = torch.exp(-torch.exp(decay.to(torch.float32)
-                                 + self.decay_base.to(torch.float32)))
+                                 + spmd.part(self.decay_base, 0, tp).to(torch.float32)))
         w = w.reshape(b, s, h, hd)
-        u = self.bonus.to(torch.float32).reshape(h, hd)
+        u = spmd.part(self.bonus, 0, tp).to(torch.float32).reshape(h, hd)
         r32, k32, v32 = (t.to(torch.float32) for t in (r, k, v))
         s0 = (cache["state"] if cache is not None
               else torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device))
@@ -139,9 +164,11 @@ class RWKV(nn.Module):
             state, y = chunked_wkv(r32, k32, v32, w, u, s0, cfg.rwkv_chunk)
         else:
             state, y = wkv_scan(r32, k32, v32, w, u, s0)
-        y = rms_norm(y.reshape(b, s, d).to(c), self.ln_x, cfg.norm_eps)
+        y = y.reshape(b, s, dl).to(c)
+        ln_x = spmd.part(self.ln_x, 0, tp)
+        y = rms_norm(y, ln_x, cfg.norm_eps, mesh, tp)
         y = y * nn.functional.silu(g)
-        out = y @ self.w_o.to(c)
+        out = spmd.reduce(y @ spmd.weight(self.w_o).to(c), mesh, tp)
         if cache is not None:
             cache["state"] = state
             cache["x_prev"] = x[:, -1, :].contiguous()

@@ -85,10 +85,11 @@ def _within(*contexts):
         yield
 
 
-def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
-    """The recompute runs under the forward's sharding rules: autograd may
-    run it on a thread of its own (the card's), where the rules'
-    context variable is unset."""
+def _remat(layer: nn.Module, remat: str, *args):
+    """``layer(*args)`` rematerialised as ``remat`` says (``encdec`` uses
+    it too). The recompute runs under the forward's sharding rules:
+    autograd may run it on a thread of its own (the card's), where the
+    rules' context variable is unset."""
     rules = active_rules()
     if remat == "full":
         def contexts():
@@ -99,7 +100,7 @@ def _remat(layer: nn.Module, remat: str, x: torch.Tensor, positions):
             return fwd, _within(rec, use_rules(rules))
     else:
         raise ValueError(f"remat {remat!r}: none, full or selective")
-    return ckpt.checkpoint(layer, x, positions, use_reentrant=False, context_fn=contexts)
+    return ckpt.checkpoint(layer, *args, use_reentrant=False, context_fn=contexts)
 
 
 _MIXERS = {"attn": attention.Attention, "mla": mla.MLA, "mamba": mamba.Mamba,

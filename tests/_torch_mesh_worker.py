@@ -359,8 +359,21 @@ def job_compress(world):
 # the mesh models: MoE dispatches, losses and train steps, the launcher
 MOE_CAPACITY_FACTORS = (8.0, 0.5)
 MOE_IMPLS = ("psum", "a2a")
-MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b")
+# every family: the dense and MoE decoders, MLA with MTP (deepseek), the
+# Mamba hybrid (jamba), RWKV-6 and the encoder-decoder (whisper)
+MESH_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b", "deepseek-v3-671b",
+              "jamba-1.5-large-398b", "rwkv6-1.6b", "whisper-medium")
 MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_QK_SCALE = 8, 16, 2, 0.25
+# the leaves scaled by MESH_QK_SCALE (attention's and MLA's query and key
+# projections)
+MESH_QK_LEAVES = ("wq", "wk", "w_uq", "w_ukv")
+# jamba cut to its reduced config's first 4 layers, which hold every layer
+# kind (Mamba+MoE, Mamba+MLP, Mamba+MoE, attention+MLP)
+MESH_CUTS = {"jamba-1.5-large-398b": dict(num_layers=4)}
+# the families the launcher trains on the mesh (whisper: training fault 5)
+MESH_LAUNCH_FAMILIES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-1.6b")
+MESH_FAMILY_ARGV = ["--reduced", "--steps", "2", "--ckpt-every", "1", "--batch", "8",
+                    "--seq", "32", "--entities", "300"]
 # rows that do not divide over the (2, 2, 2) mesh's 4 data ranks: the
 # batch is replicated (the reference's rule); the MoE block on the first
 # MESH_SMALL_ROWS rows of its x, and REPLICATED_ARCH's loss and one train
@@ -368,9 +381,21 @@ MESH_BATCH, MESH_SEQ, MESH_STEPS, MESH_QK_SCALE = 8, 16, 2, 0.25
 MESH_SMALL_ROWS = 2
 REPLICATED_ARCH = "olmoe-1b-7b"
 MESH_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=100)
+# the XLA options of the mesh models' JAX programs (the inputs' draw and
+# the reference's processes): the reduced models run in milliseconds and
+# their compiles take the time, which LLVM's cheapest settings halve
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 MESH_LAUNCH_ARGV = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "2",
                     "--ckpt-every", "1", "--batch", "8", "--seq", "32",
                     "--entities", "300"]
+
+
+def mesh_config(reduced_config, arch):
+    """``arch``'s reduced config (of either package's ``reduced_config``)
+    with its ``MESH_CUTS``."""
+    import dataclasses
+    return dataclasses.replace(reduced_config(arch), **MESH_CUTS.get(arch, {}))
 
 
 def mesh_model_inputs(path):
@@ -380,8 +405,9 @@ def mesh_model_inputs(path):
     ``tests/_moe_worker.py``); each of ``MESH_ARCHS``'s
     ``init_train_state(PRNGKey(0))`` with ``wq``/``wk`` scaled by
     ``MESH_QK_SCALE`` and ``MESH_STEPS`` train batches; the launcher's
-    initial parameters (its arch's, scaled alike); one batch of
-    ``MESH_SMALL_ROWS`` rows for ``REPLICATED_ARCH``."""
+    initial parameters (its arch's, scaled alike, and each of
+    ``MESH_LAUNCH_FAMILIES``'); one batch of ``MESH_SMALL_ROWS`` rows for
+    ``REPLICATED_ARCH``."""
     import jax
     import jax.numpy as jnp
     from repro.configs import reduced_config
@@ -397,10 +423,13 @@ def mesh_model_inputs(path):
            "models": {}}
     tcfg = train_loop.TrainConfig(opt=optimizer.OptimizerConfig(**MESH_OPT))
     for arch in MESH_ARCHS:
-        c = reduced_config(arch)
-        state = train_loop.init_train_state(build_model(c), jax.random.PRNGKey(0), tcfg)
+        c = mesh_config(reduced_config, arch)
+        # one compile of the whole init, not one a parameter shape
+        key = jax.random.PRNGKey(0)
+        state = jax.jit(lambda k: train_loop.init_train_state(build_model(c), k, tcfg)).lower(
+            key).compile(compiler_options=FAST_COMPILE)(key)
         state["params"] = jax.tree_util.tree_map_with_path(
-            lambda p, x: x * MESH_QK_SCALE if p[-1].key in ("wq", "wk") else x,
+            lambda p, x: x * MESH_QK_SCALE if p[-1].key in MESH_QK_LEAVES else x,
             state["params"])
         out["models"][arch] = {
             "state": jax.tree.map(np.asarray, state),
@@ -408,6 +437,8 @@ def mesh_model_inputs(path):
                                           rng=np.random.default_rng(7 + i))
                         for i in range(MESH_STEPS)]}
     out["launch_params"] = out["models"][MESH_LAUNCH_ARGV[1]]["state"]["params"]
+    out["family_params"] = {a: out["models"][a]["state"]["params"]
+                            for a in MESH_LAUNCH_FAMILIES}
     out["replicated_batches"] = [specs.train_batch(
         reduced_config(REPLICATED_ARCH), MESH_SEQ, MESH_SMALL_ROWS, concrete=True,
         rng=np.random.default_rng(11))]
@@ -452,18 +483,22 @@ def _port_moe(inputs, mesh, rules):
 
 def _port_train(arch, state, batches, rules):
     """``arch``'s loss on ``batches[0]``, then one train step a batch, from
-    the reference's initial ``state``, on this rank."""
+    the reference's initial ``state``, on this rank; and a digest of each
+    parameter the rules replicate, after the steps."""
+    import hashlib
     import torch
     from repro_torch.configs import reduced_config
     from repro_torch.distributed.sharding import use_rules
     from repro_torch.models import convert
     from repro_torch.models.model import build_model, shard_model
     from repro_torch.training.optimizer import OptimizerConfig
-    from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
-    cfg = reduced_config(arch)
+    from repro_torch.training.train_loop import (TrainConfig, decayed_names,
+                                                 init_train_state, make_train_step)
+    cfg = mesh_config(reduced_config, arch)
     model = build_model(cfg, device="cpu")
     model.load_state_dict(convert.params_from_jax(cfg, state["params"]))
-    shard_model(model, rules)
+    meshless_decayed = decayed_names(model)
+    specs = shard_model(model, rules)
     tcfg = TrainConfig(opt=OptimizerConfig(**MESH_OPT))
     state = init_train_state(model, tcfg)
     step = make_train_step(model, tcfg)
@@ -475,8 +510,12 @@ def _port_train(arch, state, batches, rules):
         for b in batches:
             state, met = step(state, b)
             mets.append({k: float(v) for k, v in met.items()})
+    replicated = {k: hashlib.sha256(p.detach().numpy().tobytes()).hexdigest()
+                  for k, p in model.named_parameters()
+                  if all(ax is None for ax in specs[k])}
     return {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
-            "steps": mets}
+            "steps": mets, "replicated": replicated,
+            "decayed": (sorted(meshless_decayed), sorted(decayed_names(model)))}
 
 
 def _port_models(inputs, rules):
@@ -495,9 +534,6 @@ def _port_launch(inputs, mesh):
     """The launcher on ``mesh`` from the reference's initial parameters:
     its losses and its step-1 checkpoint (whole, as numpy); then a copy of
     its checkpoints cut back to step 1 and resumed."""
-    import shutil
-    import torch
-    import torch.distributed as dist
     from repro_torch.configs import reduced_config
     from repro_torch.launch import train
     from repro_torch.models import convert
@@ -518,20 +554,12 @@ def _port_launch(inputs, mesh):
     original = train.build_model
     train.build_model = from_reference
     try:
-        full = train.main(argv + ["--ckpt-dir", os.path.join(tmp, "launch_a")], mesh=mesh)
-        if dist.get_rank() == 0:
-            shutil.copytree(os.path.join(tmp, "launch_a"), os.path.join(tmp, "launch_b"))
-            shutil.rmtree(os.path.join(tmp, "launch_b", "step_0000000002"))
-            with open(os.path.join(tmp, "launch_b", "LATEST"), "w") as f:
-                f.write("1")
-        dist.barrier()
-        resumed = train.main(argv + ["--ckpt-dir", os.path.join(tmp, "launch_b")],
-                             mesh=mesh)
+        full, resumed = _resumed_from_step_1(
+            lambda d: train.main(argv + ["--ckpt-dir", d], mesh=mesh),
+            os.path.join(tmp, "launch_a"), os.path.join(tmp, "launch_b"))
     finally:
         train.build_model = original
-    # each rank's blocks (every rank reports)
-    same = all(torch.equal(resumed.state["params"][k], p)
-               for k, p in full.state["params"].items())
+    same = _same_params(full, resumed)
     template = init_train_state(build_model(cfg, device="cpu"),
                                 TrainConfig(opt=OptimizerConfig()))
     checkpoint.restore(os.path.join(tmp, "launch_a"), template, step=1)
@@ -540,6 +568,110 @@ def _port_launch(inputs, mesh):
             "step1": {"params": {k: v.detach().numpy()
                                  for k, v in template["params"].items()},
                       "mu": {k: v.numpy() for k, v in template["opt"]["mu"].items()}}}
+
+
+def _resumed_from_step_1(main, first, second):
+    """``main(first)`` for 2 steps with a checkpoint a step, then a copy
+    of its checkpoints in ``second`` cut back to step 1 and resumed by
+    ``main(second)``: (the full run, the resumed run)."""
+    import shutil
+    import torch.distributed as dist
+    full = main(first)
+    if dist.get_rank() == 0:
+        shutil.copytree(first, second)
+        shutil.rmtree(os.path.join(second, "step_0000000002"))
+        with open(os.path.join(second, "LATEST"), "w") as f:
+            f.write("1")
+    dist.barrier()
+    return full, main(second)
+
+
+def _same_params(full, resumed):
+    """Whether two runs end with bit-equal blocks on this rank."""
+    import torch
+    return all(torch.equal(resumed.state["params"][k], p)
+               for k, p in full.state["params"].items())
+
+
+def _port_launch_family(inputs, mesh, arch):
+    """The launcher on ``mesh`` for ``arch`` (its ``MESH_CUTS`` config)
+    from the reference's scaled initial parameters: its losses, and its
+    run resumed from the step-1 checkpoint."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.models.model import build_model
+    cfg = mesh_config(reduced_config, arch)
+    sd = convert.params_from_jax(cfg, inputs["family_params"][arch])
+
+    def from_reference(c, device=None, generator=None):
+        m = build_model(c, device=device)
+        m.load_state_dict(sd)
+        return m
+
+    argv = ["--arch", arch] + MESH_FAMILY_ARGV + ["--device", "cpu"]
+    tmp = os.environ["REPRO_TEST_TMP"]
+    originals = train.build_model, train.reduced_config
+    train.build_model = from_reference
+    train.reduced_config = lambda a: mesh_config(reduced_config, a)
+    try:
+        run, resumed = _resumed_from_step_1(
+            lambda d: train.main(argv + ["--ckpt-dir", d], mesh=mesh),
+            os.path.join(tmp, f"family_{arch}_a"), os.path.join(tmp, f"family_{arch}_b"))
+    finally:
+        train.build_model, train.reduced_config = originals
+    return {"losses": run.losses, "finite": bool(all(
+        torch.isfinite(p).all() for p in run.state["params"].values())),
+            "resumed_start": resumed.start, "resumed_losses": resumed.losses,
+            "resumed_equal": _same_params(run, resumed)}
+
+
+# spmd's sums on the "pod" mesh ((2, 4) ("pod", "data")): a 16-bit sum
+# over one 2-rank dim ("pod") goes through gloo in its own type, every
+# other sum in float32; the reduce-scatter a slab at a time. Each rank's
+# bfloat16 input holds multiples of 1/256 below 1 in magnitude, whose
+# float32 sums over up to 8 ranks are exact in any order, so every result
+# has one right value: the float32 sum cast to bfloat16. COLLECTIVE_SLAB
+# makes the reduce-scatter over "pod" take 3 of its 4 rows a slab (an
+# uneven last slab) and over "data" one of its 2
+COLLECTIVE_SHAPE = (8, 5, 3)
+COLLECTIVE_SLAB = 90
+COLLECTIVE_CASES = {"all_reduce pod": ("all_reduce", ("pod",)),
+                    "all_reduce data": ("all_reduce", ("data",)),
+                    "all_reduce pod data": ("all_reduce", ("pod", "data")),
+                    "reduce_scatter pod": ("reduce_scatter", ("pod",)),
+                    "reduce_scatter data": ("reduce_scatter", ("data",)),
+                    "reduce_scatter pod data": ("reduce_scatter", ("pod", "data"))}
+
+
+def collective_input(rank):
+    """Rank ``rank``'s input to the collectives, as float32 numpy."""
+    rng = np.random.default_rng(100 + rank)
+    return (rng.integers(-255, 256, COLLECTIVE_SHAPE) / 256).astype(np.float32)
+
+
+def _port_collectives():
+    """{case: (this rank's bfloat16 result as float32, the reduce-scatter's
+    result with every row in one slab)}."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import spmd
+    mesh, _ = _mesh("pod")
+    x = torch.from_numpy(collective_input(dist.get_rank())).to(torch.bfloat16)
+    out = {}
+    for case, (op, axes) in COLLECTIVE_CASES.items():
+        if op == "all_reduce":
+            out[case] = (spmd._all_reduce(x, mesh, axes).float().numpy(), None)
+            continue
+        slab = spmd.SCATTER_SLAB
+        spmd.SCATTER_SLAB = COLLECTIVE_SLAB
+        try:
+            y = spmd._reduce_scatter(x, 0, mesh, axes)
+        finally:
+            spmd.SCATTER_SLAB = slab
+        out[case] = (y.float().numpy(), spmd._reduce_scatter(x, 0, mesh, axes).float().numpy())
+    return out
 
 
 def job_mesh_models(world):
@@ -553,7 +685,10 @@ def job_mesh_models(world):
     return {"rows": linear_shard_index(mesh, ("pod", "data")),
             "moe": _port_moe(inputs, mesh, rules),
             "models": _port_models(inputs, rules),
-            "launch": _port_launch(inputs, mesh)}
+            "launch": _port_launch(inputs, mesh),
+            "family_launch": {a: _port_launch_family(inputs, mesh, a)
+                              for a in MESH_LAUNCH_FAMILIES},
+            "collectives": _port_collectives()}
 
 
 JOBS = {"hdb": job_hdb, "shard": job_shard, "launch": job_launch,
@@ -741,9 +876,27 @@ def _auto_mesh(name):
     return Mesh(devs, axes, axis_types=(AxisType.Auto,) * len(axes))
 
 
-def ref_mesh_models():
+# the reference's half of the mesh models in two processes that run side
+# by side (its compiles take most of the test's time): the MoE blocks,
+# the olmoe launcher and its checkpoint in the first; each arch's loss
+# and train steps and each family's launcher where they balance the two
+MESH_REF_PARTS = {
+    "mesh_models": dict(base=True, archs=("tinyllama-1.1b", "olmoe-1b-7b",
+                                          "deepseek-v3-671b"),
+                        launches=("jamba-1.5-large-398b",)),
+    "mesh_families": dict(base=False, archs=("jamba-1.5-large-398b", "rwkv6-1.6b",
+                                             "whisper-medium"),
+                          launches=("deepseek-v3-671b", "rwkv6-1.6b")),
+}
+
+
+def ref_mesh_models(part="mesh_models"):
     """The reference's counterpart of ``job_mesh_models`` on the Auto
-    (2, 2, 2) mesh under ``production_rules``."""
+    (2, 2, 2) mesh under ``production_rules``: the share of it that
+    ``MESH_REF_PARTS[part]`` names. An arch's loss and metrics on its
+    first batch are its first train step's (the same function of the
+    same parameters), which saves a compile."""
+    which = MESH_REF_PARTS[part]
     import contextlib
     import dataclasses
     import io
@@ -760,8 +913,8 @@ def ref_mesh_models():
     mesh = _auto_mesh("3axis")
     rules = production_rules(mesh)
     inputs = _mesh_inputs()
-    out = {"moe": {}, "models": {}}
-    for cf in MOE_CAPACITY_FACTORS:
+    out = {"moe": {}, "models": {}, "family_launch": {}}
+    for cf in MOE_CAPACITY_FACTORS if which["base"] else ():
         for impl in MOE_IMPLS:
             cfg = dataclasses.replace(reduced_config("olmoe-1b-7b"), capacity_factor=cf,
                                       moe_impl=impl)
@@ -775,7 +928,7 @@ def ref_mesh_models():
     tcfg = train_loop.TrainConfig(opt=optimizer.OptimizerConfig(**MESH_OPT))
 
     def run(arch, state, batches):
-        model = build_model(reduced_config(arch))
+        model = build_model(mesh_config(reduced_config, arch))
         state = jax.tree.map(jax.numpy.asarray, state)
         with use_rules(rules):
             shard = param_sharding(state["params"], rules)
@@ -784,28 +937,27 @@ def ref_mesh_models():
                 for key in path[:-1]:
                     tree = tree[key]
                 tree[path[-1]] = jax.device_put(tree[path[-1]], shard)
-            loss, metrics = jax.jit(model.loss)(state["params"], batches[0])
             step = jax.jit(train_loop.make_train_step(model, tcfg))
             mets = []
             for b in batches:
                 state, met = step(state, b)
                 mets.append({k: float(v) for k, v in met.items()})
-        return {"loss": float(loss), "metrics": {k: float(v) for k, v in metrics.items()},
+        return {"loss": mets[0]["loss"],
+                "metrics": {k: v for k, v in mets[0].items()
+                            if k not in ("loss", "grad_norm", "lr")},
                 "steps": mets}
 
-    for arch in MESH_ARCHS:
+    for arch in which["archs"]:
         out["models"][arch] = run(arch, inputs["models"][arch]["state"],
                                   inputs["models"][arch]["batches"])
+    if not which["base"]:
+        return _ref_family_launches(which["launches"], inputs, mesh, out)
     out["models"]["replicated"] = run(REPLICATED_ARCH,
                                       inputs["models"][REPLICATED_ARCH]["state"],
                                       inputs["replicated_batches"])
     # the launcher, on this mesh in place of the production one, from the
     # scaled initial parameters
-    train.make_production_mesh = lambda multi_pod=False: mesh
-    init = train.init_train_state
-    train.init_train_state = lambda m, key, t: {
-        **init(m, key, t), "params": jax.tree.map(jax.numpy.asarray,
-                                                  inputs["launch_params"])}
+    _patch_launcher(inputs, mesh)
     cfg = reduced_config(MESH_LAUNCH_ARGV[1])
     with tempfile.TemporaryDirectory() as d:
         printed = io.StringIO()
@@ -820,6 +972,52 @@ def ref_mesh_models():
                 pcfg, jax.tree.map(np.asarray, restored["params"])).items()},
             "mu": {k: v.numpy() for k, v in convert.params_from_jax(
                 pcfg, jax.tree.map(np.asarray, restored["opt"]["mu"])).items()}}}
+    return _ref_family_launches(which["launches"], inputs, mesh, out)
+
+
+def _patch_launcher(inputs, mesh):
+    """The reference launcher on ``mesh`` in place of the production one,
+    from the scaled initial parameters of its arch, each config cut as
+    ``MESH_CUTS``."""
+    import jax
+    from repro.configs import reduced_config
+    from repro.launch import train
+    from repro.training import optimizer
+    if getattr(train, "_mesh_test_patched", False):
+        return
+    train._mesh_test_patched = True
+    train.make_production_mesh = lambda multi_pod=False: mesh
+    launch_params = {reduced_config(MESH_LAUNCH_ARGV[1]).name: inputs["launch_params"],
+                     **{reduced_config(a).name: p
+                        for a, p in inputs["family_params"].items()}}
+
+    def init_train_state(m, key, t):
+        """``init_train_state``'s state around the given parameters (its
+        own draw of them left out: eager, a compile a shape)."""
+        assert not t.compress_grads
+        params = jax.tree.map(jax.numpy.asarray, launch_params[m.cfg.name])
+        return {"params": params, "opt": optimizer.init_opt_state(t.opt, params),
+                "step": jax.numpy.zeros((), jax.numpy.int32)}
+
+    train.init_train_state = init_train_state
+    train.reduced_config = lambda a: mesh_config(reduced_config, a)
+
+
+def _ref_family_launches(archs, inputs, mesh, out):
+    """What the reference launcher prints for each of ``archs`` on
+    ``mesh``, under ``out["family_launch"]``; returns ``out``."""
+    import contextlib
+    import io
+    import tempfile
+    from repro.launch import train
+    _patch_launcher(inputs, mesh)
+    for arch in archs:
+        with tempfile.TemporaryDirectory() as d:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                train.main(["--arch", arch] + MESH_FAMILY_ARGV
+                           + ["--mesh", "single", "--ckpt-dir", d])
+        out["family_launch"][arch] = printed.getvalue()
     return out
 
 
@@ -829,14 +1027,18 @@ def ref_mesh_models():
 REFS = {"hdb8": lambda: ref_hdb("flat"), "hdb4": lambda: ref_hdb("flat4"),
         "shard": ref_shard,
         "launch2": lambda: ref_launch(2), "launch1": lambda: ref_launch(1),
-        "compress": ref_compress, "mesh_models": ref_mesh_models}
+        "compress": ref_compress,
+        **{part: (lambda part=part: ref_mesh_models(part)) for part in MESH_REF_PARTS}}
 
 
-def reference_process(job, out, n_dev=8):
+def reference_process(job, out, n_dev=8, fast_compile=False):
     """Start the JAX reference for ``job`` in a subprocess on ``n_dev``
-    emulated host devices; ``wait_reference`` reads its result."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={n_dev}",
+    emulated host devices, its XLA options ``FAST_COMPILE`` with
+    ``fast_compile``; ``wait_reference`` reads its result."""
+    flags = f"--xla_force_host_platform_device_count={n_dev}"
+    if fast_compile:
+        flags += "".join(f" --{k}={str(v).lower()}" for k, v in FAST_COMPILE.items())
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
                PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
                                            os.environ.get("PYTHONPATH", "")]))
     return subprocess.Popen([sys.executable, os.path.abspath(__file__), "ref", job,

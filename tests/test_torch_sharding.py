@@ -15,6 +15,13 @@ shapes and dim names. Exact equality throughout:
 - ``production_rules`` (with and without fsdp and seq_shard), ``spec``,
   ``guard_spec`` and ``logical_axes_for`` on the flat, pod and 3-axis
   meshes of ``_torch_mesh_worker.MESHES``;
+- each rank's block of every parameter of the families that train on
+  the mesh since A10b-6a (deepseek-v3's MLA and MTP, jamba's Mamba,
+  rwkv6, whisper) at full width on the (2, 2, 2) mesh: ``shard_model``
+  keeps the block shape the reference's spec gives, the replicated
+  cross-attention whole and Mamba's ``("ffn", None)`` projections split
+  by rows; and serving there (prefill, decode steps, every cached mixer,
+  the ``moe_ff`` split) still refuses (ROADMAP A10b-6b);
 - ``use_rules``/``active_rules``: nested scopes, unset in another
   thread (autograd's device thread: ``transformer._remat`` re-enters the
   rules); ``block_slices`` at every mesh coordinate (a checkpoint's
@@ -37,7 +44,7 @@ from repro.distributed import sharding as jsharding  # noqa: E402
 from repro.models.model import build_model as jbuild_model  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import build_model, shard_model  # noqa: E402
 from repro_torch.models.transformer import layer_specs, split_prefix_unit  # noqa: E402
 
 PRODUCTION = {"single": ((16, 16), ("data", "model")),
@@ -111,6 +118,98 @@ def test_param_specs_match_reference_at_full_width(which):
                 # vocab-parallel and FSDP-sharded (whisper's 51865 rows do
                 # not divide: replicated there)
                 assert got["embed.table"] == ("model", "data")
+
+
+FAMILY_ARCHS = ("deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-1.6b", "whisper-medium")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_local_blocks_match_reference_specs_on_the_small_mesh(arch):
+    shape, names = W.MESHES["3axis"]
+    want = _reference_specs(arch, AbstractMesh(shape, names))
+    cfg = configs.get_config(arch)
+    with fake_mesh(shape, names) as mesh:
+        model = build_model(cfg, device="meta")
+        whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        specs = shard_model(model, sharding.production_rules(mesh))
+        assert specs == want
+        for k, p in model.named_parameters():
+            block = tuple(n // sharding.axis_size(mesh, ax) for n, ax in zip(whole[k], want[k]))
+            assert tuple(p.shape) == block, (k, tuple(p.shape), block)
+            assert sharding.sharding_of(p).spec == want[k]
+        params = dict(model.named_parameters())
+    din = cfg.mamba_expand * cfg.d_model
+    if arch == "whisper-medium":
+        for k in ("wq", "wk", "wv", "wo"):
+            assert want[f"dec.0.cross.{k}"] == (None, None, None)
+            assert tuple(params[f"dec.0.cross.{k}"].shape) == whole[f"dec.0.cross.{k}"]
+        assert tuple(params["dec.0.attn.wq"].shape) == (512, 8, 64)
+    elif arch == "jamba-1.5-large-398b":
+        for k in ("w_b", "w_c", "w_dt"):
+            assert want[f"stack.layers.0.mamba.{k}"] == ("model", None)
+            assert params[f"stack.layers.0.mamba.{k}"].shape[0] == din // 2
+        assert tuple(params["stack.layers.0.mamba.w_in"].shape) == (cfg.d_model // 2, din // 2)
+    elif arch == "rwkv6-1.6b":
+        assert tuple(params["stack.layers.0.rwkv.w_r"].shape) == (1024, 1024)
+        assert want["stack.layers.0.rwkv.w_decay_lora_a"] == (None, None)
+    else:
+        assert want["mtp_proj"] == (None, None)
+        assert tuple(params["stack.layers.0.attn.w_uq"].shape) == (1536, 64, 192)
+        assert tuple(params["stack.layers.0.attn.w_dq"].shape) == (3584, 1536)
+
+
+def _serving_refusal(case, rules):
+    """Run ``case``'s serving call under ``rules`` on a reduced model
+    sharded over the rules' mesh."""
+    import dataclasses
+    from repro_torch.models import attention, mamba, mla, rwkv
+    from repro_torch.models.moe import MoE
+    arch = {"prefill": "tinyllama-1.1b", "decode_step": "tinyllama-1.1b",
+            "encdec prefill": "whisper-medium", "attention cache": "tinyllama-1.1b",
+            "mla cache": "deepseek-v3-671b", "mamba cache": "jamba-1.5-large-398b",
+            "rwkv cache": "rwkv6-1.6b", "moe_ff": "olmoe-1b-7b"}[case]
+    cfg = configs.reduced_config(arch)
+    model = build_model(cfg, device="cpu")
+    shard_model(model, rules)
+    tokens = torch.zeros((2, 4), dtype=torch.int32)
+    x = torch.zeros((2, 4, cfg.d_model))
+    layer = model.stack.layers[0] if hasattr(model, "stack") else None
+    with sharding.use_rules(rules), torch.no_grad():
+        if case == "prefill":
+            model.prefill({"tokens": tokens}, model.init_caches(2, 8))
+        elif case == "decode_step":
+            model.decode_step(tokens[:, :1], model.init_caches(2, 8))
+        elif case == "encdec prefill":
+            model.prefill({"tokens": tokens, "frames": x}, model.init_caches(2, 8))
+        elif case == "attention cache":
+            layer.attn(x, cache=attention.init_cache(cfg, 2, 8, "cpu"))
+        elif case == "mla cache":
+            layer.attn(x, cache=mla.init_mla_cache(cfg, 2, 8, "cpu"))
+        elif case == "mamba cache":
+            layer.mamba(x, cache=mamba.init_mamba_cache(cfg, 2, "cpu"))
+        elif case == "rwkv cache":
+            layer.rwkv(x, cache=rwkv.init_rwkv_cache(cfg, 2, "cpu"))
+        else:
+            block = next(m for m in model.modules() if isinstance(m, MoE))
+            ff = dataclasses.replace(rules, rules=rules.rules[:-1] + (("moe_ff", "data"),))
+            with sharding.use_rules(ff):
+                block(x)
+
+
+SERVING_CASES = ("prefill", "decode_step", "encdec prefill", "attention cache",
+                 "mla cache", "mamba cache", "rwkv cache", "moe_ff")
+
+
+@pytest.mark.parametrize("case", SERVING_CASES)
+def test_serving_on_the_mesh_still_refuses(case):
+    """Every family trains on the mesh; serving there (its caches, the
+    expert-internal ff split) waits for ROADMAP A10b-6b and raises."""
+    shape, names = W.MESHES["3axis"]
+    with fake_mesh(shape, names) as mesh:
+        rules = sharding.production_rules(mesh)
+        assert rules.rules[-1][0] == "moe_ff"
+        with pytest.raises(NotImplementedError, match="A10b-6b"):
+            _serving_refusal(case, rules)
 
 
 def _meshes():
